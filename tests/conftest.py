@@ -9,6 +9,11 @@ import pytest
 jax.config.update("jax_enable_x64", True)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips without one)")
+
+
 @pytest.fixture
 def rng(request):
     """Deterministic per-test np.random.Generator.
