@@ -1,37 +1,62 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's served path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's paths once on one GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
 
   1. build   — compile every kernel from src/repro_torch/kernels/csrc.
-  2. serve   — the main path, after a warm-up on 4,096 rows: keygen
-               (paper-bfv, gadget mode), the full hg38 column (34,423
-               rows, padded to 65,536) encrypted on the card, a
+  2. serve   — the read path, after a warm-up on 4,096 rows: keygen
+               (paper-bfv, gadget mode; its eval-domain CEK runs the
+               forward NTT kernel), the full hg38 column (34,423 rows,
+               padded to 65,536) encrypted on the card, a
                QueryServer(batch=4) answering 8 requests.
-               Launch counts are zeroed just before and read just after;
-               every answer must equal the plaintext truth exactly.
-  3. kernels — each kernel against its plain PyTorch version on the card,
-               byte-equal (torch.equal; residues are integers, so the
-               tolerance is 0), on the served column at every tile shape
-               the served batches gave the Eval kernel, plus edge shapes;
-               kernel and plain times by CUDA events; bounds from the
-               bytes and the card's integer multiply-add rate.
+  3. kernels — each serve-path kernel against its plain PyTorch version
+               on the card, byte-equal (torch.equal; residues are
+               integers, so the tolerance is 0), on the served column at
+               every tile shape the served batches gave the Eval kernel,
+               plus edge shapes; kernel and plain times by CUDA events;
+               bounds from the bytes and the card's integer multiply-add
+               rate.
   4. profile — the same requests traced and under torch.profiler:
                engine counters, span totals, device busy share, device
                time by kernel name.
   5. index   — SortedIndex.build over 4,096 rows (encrypted_sort through
                the Eval kernel), point lookups and ranges vs the truth.
-  6. card    — the card's name and power limit (nvidia-smi), then one
+  6. keymul  — gadget_keymul on 1,024 served lanes: ring.ntt/intt on the
+               card run the ntt_br kernels (forward and inverse); coeff 0
+               of scale·d0 + keymul must equal the gadget Eval kernel's
+               residues (two independent kernels).  Then ntt_br in both
+               directions against its plain version at keygen's
+               [8, 2, 4096], at [4, 2, 16384] (paper-ckks) and at the
+               keymul shapes, and the round trip.
+  7. write   — the paper-mode write path (paper_ecek_weight=0), after
+               the gadget table is freed: keygen, the hg38 column
+               encrypted, SortedIndex.build over all 34,423 rows, then
+               the write benchmark's traffic (5 % = 1,721 inserts in 4
+               chunks, each followed by a Range; a delete of 2 rows and a
+               full-range query; the 8 requests of phase 2 scanned over
+               base ∪ delta; a union Eq probe of a delta value; compact;
+               the probe again), every answer held against the running
+               plaintext, under obs tracing (span totals) and with the
+               compaction under torch.profiler.
+  8. paper   — the paper Eval kernel against its plain version at every
+               shape the write phase gave it (column pass at its scan
+               tiles, 2,048-row delta tiles and the full 65,536 rows,
+               bounds pass, lane form at 32,768 sort pairs, 65,536 merge
+               pairs and the probe lanes, one bound for every lane).
+  9. card    — the card's name and power limit (nvidia-smi), then one
                {"kernels": [...]} line with every kernel's numbers.
 
-The last line is the device record.  Any failure raises: the script then
-exits non-zero without it, as it does with no CUDA device or without
-the repository beside it.  It imports nothing of JAX or of `repro`.
+Launch counts are zeroed just before each path (serve, keymul, write)
+and read just after; each path's kernels must have launched.  The last
+line is the device record.  Any failure raises: the script then exits
+non-zero without it, as it does with no CUDA device or without the
+repository beside it.  It imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -46,6 +71,9 @@ SRC = ROOT / "src"
 PROFILE = "paper-bfv"
 BATCH = 4
 INDEX_ROWS = 4096
+KEYMUL_LANES = 1024
+WRITE_SHARE = 0.05          # the write benchmark's insert share
+WRITE_STEPS = 4
 SEED = 0
 
 # H100 SXM published memory rate (NVIDIA data sheet, at 700 W)
@@ -56,6 +84,13 @@ HBM_BYTES_PER_S = 3.35e12
 # at most one per such lane and clock, so SMs x 64 x the maximum SM
 # clock is the most the card can do of them.
 INT32_LANES_PER_SM = 64
+
+
+# the kernels each driven path must launch (keygen's eval-domain gadget
+# CEK puts the forward NTT on the serve path)
+SERVE_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul", "ntt_br_fwd")
+KEYMUL_KERNELS = ("ntt_br_fwd", "ntt_br_inv")
+WRITE_KERNELS = ("eval_coeff0_paper", "negacyclic_mul")
 
 
 def emit(obj) -> None:
@@ -131,6 +166,25 @@ def mul_bound(B: int, K: int, n: int, b_rows: int, rate: dict) -> dict:
     nbytes = 8 * (2 * B * K * n + b_rows * K * n + 2 * K * n
                   + 2 * K * S * (n // 2))
     return _bound(nbytes, B * K * (4 * n + 3 * (n // 2) * S), rate)
+
+
+def ntt_bound(B: int, K: int, n: int, rate: dict) -> dict:
+    """ntt_br over B rows (either direction): read x and its twist and
+    twiddle tables once, write B rows; n twist multiplies + n/2 log2 n
+    butterflies per (row, tower)."""
+    S = n.bit_length() - 1
+    nbytes = 8 * (2 * B * K * n + K * n + K * S * (n // 2))
+    return _bound(nbytes, B * K * (n + (n // 2) * S), rate)
+
+
+def paper_bound(B: int, K: int, n: int, lane_form: bool, b_rows: int,
+                rate: dict) -> dict:
+    """Paper Eval over B lanes: read each lane's c1 and c0 coefficient 0
+    (and b's, b_rows of them, in the lane form) and rev(cek) once, write
+    [B, K]; one multiply-add per c1 coefficient."""
+    rows = B + (b_rows if lane_form else 0)
+    nbytes = 8 * (rows * (K * n + K) + K * n + K + B * K)
+    return _bound(nbytes, B * K * n, rate)
 
 
 # ---------------------------------------------------------------------------
@@ -378,8 +432,8 @@ def phase_serve(dev) -> tuple:
     emit(out)
     require(correct == len(reqs), f"serve answered {out['correct']}")
     require(dec_ok, "decrypted sample != data")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel never launched on the main path: {launches}")
+    require(all(launches[k] > 0 for k in SERVE_KERNELS),
+            f"a kernel never launched on the serve path: {launches}")
     return ks, table, vals, reqs, out
 
 
@@ -407,33 +461,15 @@ def phase_profile(ks, table, reqs, serve) -> dict:
         wall = time.perf_counter() - t0
         lanes = obs.REGISTRY.value("eval.lanes")
         tiles = obs.REGISTRY.value("eval.tiles")
-    spans: dict = {}
-    for ev in tracer.chrome_trace()["traceEvents"]:
-        spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: dict = {}
-    for e in dev:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    busy_us, end = 0.0, None                  # union of device intervals
-    for e in sorted(dev, key=lambda e: e.time_range.start):
-        lo, hi = e.time_range.start, e.time_range.end
-        if end is None or lo >= end:
-            busy_us += hi - lo
-            end = hi
-        elif hi > end:
-            busy_us += hi - end
-            end = hi
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    spans = _span_ms(tracer)
+    dev = _device_summary(prof, wall, top=8)
     out = {"phase": "profile", "traced_wall_s": wall,
            "eval_lanes": lanes, "eval_tiles": tiles,
            "span_ms": spans,
-           "device_events": len(dev),
-           "device_busy_s": busy_us / 1e6 if dev else None,
-           "device_busy_share": busy_us / 1e6 / wall if dev else None,
-           "device_ms_by_name": {name[:80]: {"count": c, "ms": us / 1e3}
-                                 for name, (c, us) in top}}
+           "device_events": dev["events"],
+           "device_busy_s": dev["busy_s"],
+           "device_busy_share": dev["busy_share"],
+           "device_ms_by_name": dev["ms_by_name"]}
     emit(out)
     require(lanes == serve["eval_lanes"],
             f"traced eval.lanes {lanes} != served {serve['eval_lanes']}")
@@ -481,6 +517,397 @@ def phase_index(ks, table, vals) -> dict:
     return out
 
 
+def phase_keymul(ks, table, rate) -> dict:
+    """gadget_keymul over KEYMUL_LANES served lanes, its NTTs on the
+    ntt_br kernels (launch counts zeroed just before, read just after),
+    cross-checked against the gadget Eval kernel; then ntt_br against its
+    plain version at every shape it runs at, and timed."""
+    import torch
+    from repro_torch.core import compare as C
+    from repro_torch.core import encrypt as E
+    from repro_torch.core import gadget as G
+    from repro_torch.core import ring as R
+    from repro_torch.core import sampling
+    from repro_torch.core.encrypt import Ciphertext
+    from repro_torch.core.params import make_params
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import cmp_eval as CK
+    from repro_torch.kernels import ntt as NK
+
+    params, ring = ks.params, ks.ring
+    K, n, D = params.num_towers, params.n, params.gadget_digits_per_tower
+    qs = ring.q_arr[:, 0]
+    rows = KEYMUL_LANES
+    col = table.scan_column("value")
+    bound = E.encrypt(ks, 30000, SEED + 11)
+    lanes = Ciphertext(col.c0[:rows], col.c1[:rows])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    d = C.ct_sub(ring, lanes, Ciphertext(bound.c0[None], bound.c1[None]))
+    keyed = G.gadget_keymul(ks, d.c1)
+    via_ntt = R.add(ring, R.scalar_mul(ring, d.c0, params.scale),
+                    keyed)[..., 0]
+    torch.cuda.synchronize()
+    keymul_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    via_eval = CK.eval_coeff0_gadget(
+        col.c0[None], col.c1[None], 0, rows, [0], bound.c0[None],
+        bound.c1[None], ks.cek_rev, qs, params.scale,
+        params.profile.gadget_log_base)[0]
+    torch.cuda.synchronize()
+    cross_equal = bool(torch.equal(via_ntt, via_eval))
+    del d, keyed, via_ntt, via_eval
+
+    gen = sampling.make_generator(SEED + 12, ks.device)
+    ckks = make_params("paper-ckks")
+    cring = R.make_ring(ckks, ks.device)
+    digits = sampling.uniform_poly(params, gen, (rows * K * D,))
+    cases = [("keygen cek_gadget", ks.cek_gadget.reshape(-1, K, n), ring),
+             ("paper-ckks", sampling.uniform_poly(ckks, gen, (4,)), cring),
+             ("keymul digits", digits, ring),
+             ("keymul sum", digits[:rows], ring)]
+    eq, errs = True, []
+    for _, x, rg in cases:
+        for fwd in (True, False):
+            got = NK.ntt_br(x, rg, fwd=fwd)
+            want = NK.ntt_br_plain(x, rg, fwd=fwd)
+            torch.cuda.synchronize()
+            eq &= torch.equal(got, want)
+            errs.append(max_abs_err(got, want))
+        eq &= torch.equal(NK.ntt_br(NK.ntt_br(x, rg), rg, fwd=False), x)
+    torch.cuda.synchronize()
+    # times at the keymul path's shapes: forward over its K*D digit
+    # polynomials per lane, inverse over one polynomial per lane
+    timed = {}
+    for name, x, fwd in (("fwd", digits, True), ("inv", digits[:rows], False)):
+        timed[name] = {
+            "shape": list(x.shape),
+            "ms": time_cuda(lambda: NK.ntt_br(x, ring, fwd=fwd), 10),
+            "plain_ms": time_cuda(
+                lambda: NK.ntt_br_plain(x, ring, fwd=fwd), 1),
+            **ntt_bound(x.shape[0], K, n, rate)}
+    timed["fwd_keygen_ms"] = time_cuda(
+        lambda: NK.ntt_br(cases[0][1], ring), 20)
+    del digits, cases
+    torch.cuda.empty_cache()
+    out = {"phase": "keymul", "lanes": rows, "cross_equal": cross_equal,
+           "keymul_s": keymul_s, "launches": launches, "ntt_equal": eq,
+           "max_abs_err": max(errs), "ntt_cases": len(errs), **timed}
+    emit(out)
+    require(cross_equal, "coeff0 of gadget_keymul != the gadget Eval")
+    require(eq, f"ntt_br kernel != plain (max |err| {errs})")
+    require(all(launches[k] > 0 for k in KEYMUL_KERNELS),
+            f"an NTT kernel never launched on the keymul path: {launches}")
+    return out
+
+
+def phase_write(dev, vals) -> tuple:
+    """The paper-mode write path (the write benchmark's traffic over the
+    full column), with every launch count zeroed just before it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.core import encrypt as E
+    from repro_torch.core.compare import next_pow2
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.params import make_params
+    from repro_torch.db import execute, compact
+    from repro_torch.db import plan as P
+    from repro_torch.db.index import SortedIndex
+    from repro_torch.db.query_serve import QueryServer
+    from repro_torch.db.table import Table
+    from repro_torch.kernels import _build
+
+    params = make_params(PROFILE, mode="paper")
+    seeds = iter(range(5000, 6000))
+
+    def enc(v):
+        return E.encrypt(ks, int(v), next(seeds))
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    walls = {}
+    with obs.tracing() as tracer:
+        t0 = time.perf_counter()
+        ks = keygen(params, SEED + 20, device=dev, paper_ecek_weight=0)
+        walls["keygen_s"] = sync_s(t0)
+        t0 = time.perf_counter()
+        table = Table.from_arrays(ks, "hg38_w", {"value": vals}, SEED + 21)
+        walls["encrypt_s"] = sync_s(t0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            idx = SortedIndex.build(ks, table, "value")
+            walls["index_build_s"] = sync_s(t0)
+        build_dev = _device_summary(prof, walls["index_build_s"])
+        del prof
+        build_ok = bool(np.array_equal(vals[idx.perm], np.sort(vals)))
+        indexes = {"value": idx}
+        n = len(vals)
+        rng = np.random.default_rng(7)
+        m = max(8, round(WRITE_SHARE * n))
+
+        # ---- sustained ingest while serving (FIFO mutation queue) ------
+        server = QueryServer(ks, table, indexes=indexes, batch=BATCH)
+        all_vals, alive = vals.copy(), np.ones(n, bool)
+        chunks = np.array_split(rng.choice(vals, m), WRITE_STEPS)
+        qok = gid_ok = True
+        t0 = time.perf_counter()
+        for i, chunk in enumerate(chunks):
+            ins = server.submit_insert({"value": chunk}, SEED + 1000 + i)
+            lo, hi = (int(v) for v in np.sort(rng.choice(vals, 2,
+                                                         replace=False)))
+            qid = server.submit(P.Range("value", enc(lo), enc(hi)))
+            res = server.run()
+            start = len(all_vals)
+            all_vals = np.concatenate([all_vals, chunk])
+            alive = np.concatenate([alive, np.ones(len(chunk), bool)])
+            gid_ok &= np.array_equal(res[ins].row_ids,
+                                     np.arange(start, start + len(chunk)))
+            qok &= np.array_equal(
+                res[qid].mask, (all_vals >= lo) & (all_vals <= hi) & alive)
+        walls["insert_serve_s"] = sync_s(t0)
+        # a tombstone mid-stream: the very next query must exclude it
+        dead = [n // 2, n // 2 + 1]
+        t0 = time.perf_counter()
+        did = server.submit_delete(dead)
+        qid = server.submit(P.Range("value", enc(all_vals.min()),
+                                    enc(all_vals.max())))
+        res = server.run()
+        walls["delete_query_s"] = sync_s(t0)
+        alive[dead] = False
+        tomb_ok = bool(res[did].deleted == len(dead)
+                       and np.array_equal(res[qid].mask, alive))
+        dbuild = sum(b.delta_build_compares for b in server.batch_log)
+
+        # ---- the 8 served requests scanned over base ∪ delta -----------
+        scan = QueryServer(ks, table, batch=BATCH)
+        reqs = _requests(ks, vals, np.random.default_rng(SEED))
+        qids = [scan.submit(q) for q, _ in reqs]
+        t0 = time.perf_counter()
+        sres = scan.run()
+        walls["scan_requests_s"] = sync_s(t0)
+        scan_correct = sum(
+            int(np.array_equal(sres[q].row_ids,
+                               np.nonzero(truth(all_vals) & alive)[0]))
+            for q, (_, truth) in zip(qids, reqs))
+        scan_batches = [{"queries": b.queries,
+                         "scan_compares": b.scan_compares,
+                         "wall_s": b.wall_s} for b in scan.batch_log]
+        scan_width = table.scan_width
+        del scan, sres
+
+        # ---- union probe: base search + one per-run binary search ------
+        target = int(all_vals[n + m // 2])          # lives in the delta run
+        q_eq = P.Eq("value", enc(target))
+        execute(ks, table, q_eq, indexes=indexes)              # warm
+        t0 = time.perf_counter()
+        for _ in range(2):
+            res = execute(ks, table, q_eq, indexes=indexes)
+        walls["union_probe_s"] = sync_s(t0) / 2
+        want = (all_vals == target) & alive
+        probe_ok = bool(np.array_equal(res.mask, want))
+        n_b, n_d = next_pow2(table.n_rows), next_pow2(table.n_delta)
+        probe_bound = 2 * 2 * (max(1, (n_b - 1).bit_length())
+                               + max(1, (n_d - 1).bit_length()))
+        probe_compares = res.stats.index_compares
+
+        # ---- compaction: merge network, never a rebuild -----------------
+        nb, nd = table.n_rows, table.n_delta
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cstats = compact(ks, table, indexes)
+            walls["compact_s"] = sync_s(t0)
+        L = next_pow2(max(nb, nd))
+        merge_bound = cstats.merge_rounds * L * (1 + max(1,
+                                                         L.bit_length() - 1))
+        sorted_ok = bool(np.array_equal(all_vals[indexes["value"].perm],
+                                        np.sort(all_vals)))
+        execute(ks, table, q_eq, indexes=indexes)              # warm
+        t0 = time.perf_counter()
+        for _ in range(2):
+            post = execute(ks, table, q_eq, indexes=indexes)
+        walls["post_probe_s"] = sync_s(t0) / 2
+        post_ok = bool(np.array_equal(post.mask, want))
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    spans = _span_ms(tracer)
+    compact_dev = _device_summary(prof, walls["compact_s"])
+    out = {
+        "phase": "write", "profile": PROFILE, "mode": "paper",
+        "rows_base": n, "rows_inserted": m, "steps": WRITE_STEPS,
+        "n_padded": table.n_padded, "index_build_ok": build_ok,
+        "index_build_compares": idx.build_compares,
+        "index_build_device": build_dev,
+        "inserts_per_s": m / walls["insert_serve_s"],
+        "exact": bool(qok and gid_ok), "tombstone_ok": tomb_ok,
+        "delta_build_compares": dbuild,
+        "scan_correct": f"{scan_correct}/{len(reqs)}",
+        "scan_width": scan_width, "scan_batches": scan_batches,
+        "union_probe": {"compares": probe_compares, "bound": probe_bound,
+                        "exact": probe_ok, "matched": int(want.sum())},
+        "compact": {"merge_compares": cstats.merge_compares,
+                    "merge_bound": merge_bound,
+                    "rebuild_compares": cstats.rebuild_compares,
+                    "rounds": cstats.merge_rounds, "sorted_ok": sorted_ok,
+                    "post_probe_compares": post.stats.index_compares,
+                    "post_exact": post_ok, "device": compact_dev},
+        "walls": walls, "span_ms": spans, "launches": launches,
+        "peak_mem_bytes": peak,
+    }
+    emit(out)
+    require(build_ok, "the write table's index is not sorted")
+    require(qok and gid_ok, "served answers diverged from the plaintext")
+    require(tomb_ok, "the tombstoned rows were not excluded")
+    require(scan_correct == len(reqs),
+            f"scan over base ∪ delta answered {out['scan_correct']}")
+    require(probe_ok, "union probe diverged from the from-scratch answer")
+    require(probe_compares <= probe_bound,
+            f"union probe {probe_compares} > bound {probe_bound}")
+    require(not table.has_delta and sorted_ok and post_ok,
+            "compaction left a delta, an unsorted index or a wrong answer")
+    require(cstats.merge_compares <= merge_bound,
+            f"merge {cstats.merge_compares} > bound {merge_bound}")
+    require(cstats.merge_compares < cstats.rebuild_compares,
+            "compaction cost a rebuild, not a merge")
+    require(all(launches[k] > 0 for k in WRITE_KERNELS),
+            f"a kernel never launched on the write path: {launches}")
+    return ks, table, out
+
+
+def _span_ms(tracer) -> dict:
+    """Total milliseconds by span name over a tracer's events."""
+    spans: dict = {}
+    for ev in tracer.chrome_trace()["traceEvents"]:
+        spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    return spans
+
+
+def _device_summary(prof, wall_s: float, top: int = 6) -> dict:
+    """Device busy time (union of kernel intervals), its share of the
+    wall, and the top kernels by device time, from a torch.profiler run."""
+    import torch
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in dev:
+        c, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
+    busy_us, end = 0.0, None
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        lo, hi = e.time_range.start, e.time_range.end
+        if end is None or lo >= end:
+            busy_us += hi - lo
+            end = hi
+        elif hi > end:
+            busy_us += hi - end
+            end = hi
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"events": len(dev),
+            "busy_s": busy_us / 1e6 if dev else None,
+            "busy_share": busy_us / 1e6 / wall_s if dev else None,
+            "ms_by_name": {name[:80]: {"count": c, "ms": us / 1e3}
+                           for name, (c, us) in ranked}}
+
+
+def phase_paper(ks, table, write, rate) -> dict:
+    """The paper Eval kernel against its plain version at every shape the
+    write phase gave it, on the write table's column; timed at the scan
+    tile and at the sort and merge stage shapes."""
+    import torch
+    from repro_torch.core import sampling
+    from repro_torch.core.compare import next_pow2
+    from repro_torch.kernels import cmp_eval as CK
+    from repro_torch.kernels import ops as KO
+
+    params = ks.params
+    K, n = params.num_towers, params.n
+    qs = ks.ring.q_arr[:, 0]
+    col = table.columns["value"]
+    W = write["scan_width"]
+    gen = sampling.make_generator(SEED + 13, ks.device)
+    args = (ks.cek_rev, qs, params.scale)
+    tiles = sorted({min(KO.lane_tile(W, b["scan_compares"] // W),
+                        table.n_padded) for b in write["scan_batches"]})
+    delta_rows = W - table.n_padded if W > table.n_padded else 2048
+    # a merge stage compares L = next_pow2(base rows) pairs, a sort stage
+    # L / 2: the first half of the merge lanes
+    merge_pairs = next_pow2(write["rows_base"])
+    pairs = merge_pairs // 2
+    pick = torch.randint(0, table.n_rows, (2, merge_pairs), generator=gen,
+                         device=ks.device)
+    mlo = (col.c0[pick[0]], col.c1[pick[0]])
+    mhi = (col.c0[pick[1]], col.c1[pick[1]])
+    lo, hi = (mlo[0][:pairs], mlo[1][:pairs]), (mhi[0][:pairs], mhi[1][:pairs])
+    probe = torch.randint(0, table.n_rows, (2, 8), generator=gen,
+                          device=ks.device)
+    cases = []                       # (name, a0, a1, b0, b1)
+    for T in tiles:
+        for off in (0, table.n_padded - T):
+            cases.append((f"column {T}@{off}", col.c0[off:off + T],
+                          col.c1[off:off + T], None, None))
+    cases.append(("column delta", col.c0[-delta_rows:],
+                  col.c1[-delta_rows:], None, None))
+    cases.append(("column full", col.c0, col.c1, None, None))
+    for A in (8, 10):
+        b = sampling.uniform_poly(params, gen, (2, A))
+        cases.append((f"bounds {A}", b[0], b[1], None, None))
+    cases.append(("lanes sort", *lo, *hi))
+    cases.append(("lanes merge", *mlo, *mhi))
+    for B in (2, 8):
+        cases.append((f"lanes probe {B}", col.c0[probe[0, :B]],
+                      col.c1[probe[0, :B]], col.c0[probe[1, :B]],
+                      col.c1[probe[1, :B]]))
+    cases.append(("lanes one bound", *lo, lo[0][:1], lo[1][:1]))
+    eq, errs = True, {}
+    for name, a0, a1, b0, b1 in cases:
+        got = CK.eval_coeff0_paper(a0, a1, *args, b0, b1)
+        want = CK.eval_coeff0_paper_plain(a0, a1, *args, b0, b1)
+        torch.cuda.synchronize()
+        eq &= torch.equal(got, want)
+        errs[name] = max_abs_err(got, want)
+    timed = {
+        "column": [{"rows": T,
+                    "ms": time_cuda(lambda: CK.eval_coeff0_paper(
+                        col.c0[:T], col.c1[:T], *args), 10),
+                    "plain_ms": time_cuda(
+                        lambda: CK.eval_coeff0_paper_plain(
+                            col.c0[:T], col.c1[:T], *args), 1),
+                    **paper_bound(T, K, n, False, 0, rate)}
+                   for T in tiles],
+        "lanes": {"pairs": pairs,
+                  "ms": time_cuda(lambda: CK.eval_coeff0_paper(
+                      *lo, *args, *hi), 10),
+                  "plain_ms": time_cuda(lambda: CK.eval_coeff0_paper_plain(
+                      *lo, *args, *hi), 1),
+                  **paper_bound(pairs, K, n, True, pairs, rate)},
+        "lanes_merge": {
+            "pairs": merge_pairs,
+            "ms": time_cuda(lambda: CK.eval_coeff0_paper(
+                *mlo, *args, *mhi), 10),
+            "plain_ms": time_cuda(lambda: CK.eval_coeff0_paper_plain(
+                *mlo, *args, *mhi), 1),
+            **paper_bound(merge_pairs, K, n, True, merge_pairs, rate)},
+    }
+    del lo, hi, mlo, mhi, cases
+    torch.cuda.empty_cache()
+    out = {"phase": "paper", "tolerance": 0, "equal": eq,
+           "max_abs_err": max(errs.values()), "cases": errs, **timed}
+    emit(out)
+    require(eq, f"paper Eval kernel != plain (|err| {errs})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -507,10 +934,19 @@ def main() -> int:
     kern = phase_kernels(ks, table, serve, rate)
     phase_profile(ks, table, reqs, serve)
     phase_index(ks, table, vals)
+    keymul = phase_keymul(ks, table, rate)
+    del ks, table, reqs             # free the gadget table for the write path
+    gc.collect()
+    torch.cuda.empty_cache()
+    wks, wtable, write = phase_write(dev, vals)
+    paper = phase_paper(wks, wtable, write, rate)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           **{k: serve[k] for k in ("correct", "keygen_s", "encrypt_s",
                                    "serve_wall_s", "queries_per_s",
-                                   "peak_mem_bytes")}})
+                                   "peak_mem_bytes")},
+          "write": {k: write[k] for k in ("inserts_per_s", "exact",
+                                          "scan_correct", "walls",
+                                          "peak_mem_bytes")}})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -520,21 +956,27 @@ def main() -> int:
     src = "src/repro_torch/kernels/csrc"
     ev, mul = kern["eval"], kern["mul"]
     tile = ev["served_tiles"][0]          # the first batch's tile shape
+    lanes = paper["lanes"]                # the sort stage shape
+
+    def row(name, source, replaces, path, launches, err, t):
+        return {"name": name, "route": "cuda", "source": f"{src}/{source}",
+                "replaces": replaces, "launches": path["launches"][launches],
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None}
     emit({"kernels": [
-        {"name": "eval_coeff0_gadget", "route": "cuda",
-         "source": f"{src}/cmp_eval.cu",
-         "replaces": "src/repro/kernels/cmp_eval.py:48",
-         "launches": serve["launches"]["eval_coeff0_gadget"],
-         "max_abs_err": ev["max_abs_err"], "ms": tile["ms"],
-         "plain_ms": tile["plain_ms"], "bound_ms": tile["bound_ms"],
-         "bound_by": tile["bound_by"], "library_ms": None},
-        {"name": "negacyclic_mul", "route": "cuda",
-         "source": f"{src}/ntt.cu",
-         "replaces": "src/repro/kernels/ntt.py:81",
-         "launches": serve["launches"]["negacyclic_mul"],
-         "max_abs_err": mul["max_abs_err"], "ms": mul["ms"],
-         "plain_ms": mul["plain_ms"], "bound_ms": mul["bound_ms"],
-         "bound_by": mul["bound_by"], "library_ms": None},
+        row("eval_coeff0_gadget", "cmp_eval.cu",
+            "src/repro/kernels/cmp_eval.py:48", serve, "eval_coeff0_gadget",
+            ev["max_abs_err"], tile),
+        row("negacyclic_mul", "ntt.cu", "src/repro/kernels/ntt.py:81",
+            serve, "negacyclic_mul", mul["max_abs_err"], mul),
+        row("eval_coeff0_paper", "cmp_eval.cu",
+            "src/repro/kernels/cmp_eval.py:35", write, "eval_coeff0_paper",
+            paper["max_abs_err"], lanes),
+        row("ntt_br_fwd", "ntt.cu", "src/repro/kernels/ntt.py:68", keymul,
+            "ntt_br_fwd", keymul["max_abs_err"], keymul["fwd"]),
+        row("ntt_br_inv", "ntt.cu", "src/repro/kernels/ntt.py:75", keymul,
+            "ntt_br_inv", keymul["max_abs_err"], keymul["inv"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,9 @@ Outputs (pk, sk, cek).  Two CEK realizations, as in `repro.core.keys`:
 `keygen` samples from a seeded `torch.Generator` on the target device,
 or takes every sample pre-drawn (sk, a, e_pk, e_cek / e_gadget) so a
 test can hand in the reference's samples and require identical keys.
+In gadget mode it precomputes the eval-domain CEK (`cek_gadget_ntt`),
+as the reference does, through `ring.ntt` (the `ntt_br` kernel on a
+card).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ class KeySet:
     pk1: torch.Tensor                  # [K, n]  a
     cek: Optional[torch.Tensor]        # paper mode: [K, n]
     cek_gadget: Optional[torch.Tensor]  # gadget mode: [K_src, D, K, n]
+    cek_gadget_ntt: Optional[torch.Tensor] = None  # same, eval domain
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -43,34 +47,15 @@ class KeySet:
         return self.sk.device
 
     @property
-    def cek_gadget_ntt(self) -> torch.Tensor:
-        """The gadget CEK in the eval domain (the reference precomputes
-        it in keygen).  Computed on request by the plain NTT; the port's
-        Eval does not need it, and its NTT kernel (`ntt_br`) is not
-        ported yet, so a CUDA KeySet raises."""
-        if "cek_gadget_ntt" not in self._cache:
-            if self.cek_gadget is None:
-                raise ValueError("cek_gadget_ntt needs a gadget-mode KeySet")
-            if self.sk.is_cuda:
-                raise NotImplementedError(
-                    "cek_gadget_ntt on a CUDA tensor needs the ntt_br kernel "
-                    "(kernels/ntt.py::ntt_br in the reference), not ported yet")
-            K, n = self.params.num_towers, self.params.n
-            flat = self.cek_gadget.reshape(-1, K, n)
-            self._cache["cek_gadget_ntt"] = R.ntt(self.ring, flat).reshape(
-                self.cek_gadget.shape)
-        return self._cache["cek_gadget_ntt"]
-
-    @property
     def cek_rev(self) -> torch.Tensor:
-        """The gadget CEK reversed and sign-flipped along n, [K_src, D, K, n]:
-        rev[..., 0] = c[..., 0], rev[..., i] = -c[..., n-i] mod q.  Then
-        coeff0 of x ⊛ c is the dot product <x, rev(c)>, which is how the
-        Eval kernel computes the gadget key-multiply without NTTs."""
+        """The CEK reversed and sign-flipped along n: rev[..., 0] =
+        c[..., 0], rev[..., i] = -c[..., n-i] mod q.  Then coeff0 of
+        x ⊛ c is the dot product <x, rev(c)>, which is how the Eval
+        kernels compute the key multiply without NTTs.  [K, n] in paper
+        mode (from `cek`), [K_src, D, K, n] in gadget mode (from
+        `cek_gadget`)."""
         if "cek_rev" not in self._cache:
-            if self.cek_gadget is None:
-                raise ValueError("cek_rev needs a gadget-mode KeySet")
-            c = self.cek_gadget
+            c = self.cek if self.mode == "paper" else self.cek_gadget
             tail = (-torch.flip(c[..., 1:], dims=[-1])) % self.ring.q_arr
             self._cache["cek_rev"] = torch.cat([c[..., :1], tail],
                                                dim=-1).contiguous()
@@ -83,9 +68,20 @@ class KeySet:
         arrays through `np.asarray`)."""
         dev = R.resolve_device(device)
         as_t = lambda a: None if a is None else R.int64_tensor(a, dev)  # noqa: E731
-        return cls(params=params, ring=R.make_ring(params, dev),
-                   sk=as_t(sk), pk0=as_t(pk0), pk1=as_t(pk1),
-                   cek=as_t(cek), cek_gadget=as_t(cek_gadget))
+        rng = R.make_ring(params, dev)
+        cek_gadget = as_t(cek_gadget)
+        return cls(params=params, ring=rng, sk=as_t(sk), pk0=as_t(pk0),
+                   pk1=as_t(pk1), cek=as_t(cek), cek_gadget=cek_gadget,
+                   cek_gadget_ntt=_gadget_ntt(rng, cek_gadget))
+
+
+def _gadget_ntt(rng: R.Ring, cek_gadget: Optional[torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+    """The gadget CEK in the eval domain (None without one)."""
+    if cek_gadget is None:
+        return None
+    flat = cek_gadget.reshape(-1, rng.num_towers, rng.n)
+    return R.ntt(rng, flat).reshape(cek_gadget.shape)
 
 
 def _gadget_cek(params: HadesParams, rng: R.Ring, sk: torch.Tensor,
@@ -145,4 +141,5 @@ def keygen(params: HadesParams, seed: int | torch.Generator = 0, *,
                     else sampling.noise_poly(params, gen, (K * D,)))
         cek_gadget = _gadget_cek(params, rng, sk, e_gadget)
     return KeySet(params=params, ring=rng, sk=sk, pk0=pk0, pk1=a,
-                  cek=cek, cek_gadget=cek_gadget)
+                  cek=cek, cek_gadget=cek_gadget,
+                  cek_gadget_ntt=_gadget_ntt(rng, cek_gadget))

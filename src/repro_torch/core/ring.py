@@ -6,10 +6,12 @@ fits a signed int64 (q_k < 2^31), and `%` (torch.remainder) keeps the
 sign of the divisor as Python and jnp do, so the arithmetic is exact and
 byte-identical to `repro.core.ring`.
 
-The plain NTT is the reference's: pre-twist by psi^i, bit-reverse, DIT
-Cooley-Tukey forward; Gentleman-Sande inverse, bit-reverse, post-twist by
-psi^-i * n^-1.  `negacyclic_mul` is `kernels.ntt.negacyclic_mul`: the
-fused multiply kernel on a CUDA tensor, its plain version on a CPU one.
+`ntt`/`intt` take and give natural order, through `kernels.ntt.ntt_br`,
+whose forward output is in bit-reversed order: ntt(x) =
+ntt_br(x)[..., bitrev] and intt(y) = ntt_br_inv(y[..., bitrev]) (the bit
+reversal is an involution).  `negacyclic_mul` is
+`kernels.ntt.negacyclic_mul`.  Each runs its kernel on a CUDA tensor and
+its plain version on a CPU one.
 """
 from __future__ import annotations
 
@@ -114,52 +116,19 @@ def pointwise_mul(ring: Ring, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# NTT (plain PyTorch, the reference's schedule)
+# NTT (natural order in and out, through the bit-reversed-order transform)
 # ---------------------------------------------------------------------------
-
-def _dit_stages(a: torch.Tensor, stage_w: torch.Tensor, q: torch.Tensor,
-                n: int) -> torch.Tensor:
-    """Forward DIT butterflies on bit-reversed input. a: [..., K, n]."""
-    qb = q[..., None]                                  # [K, 1, 1]
-    for s in range(n.bit_length() - 1):
-        h = 1 << s
-        w = stage_w[:, s, :h]                          # [K, h]
-        x = a.reshape(a.shape[:-1] + (n // (2 * h), 2 * h))
-        u, v = x[..., :h], x[..., h:]
-        t = (v * w[:, None, :]) % qb
-        a = torch.cat([(u + t) % qb, (u - t) % qb], dim=-1)
-        a = a.reshape(a.shape[:-2] + (n,))
-    return a
-
-
-def _gs_stages(a: torch.Tensor, stage_w_inv: torch.Tensor, q: torch.Tensor,
-               n: int) -> torch.Tensor:
-    """Inverse Gentleman-Sande butterflies, natural-order input."""
-    qb = q[..., None]
-    for s in reversed(range(n.bit_length() - 1)):
-        h = 1 << s
-        w = stage_w_inv[:, s, :h]
-        x = a.reshape(a.shape[:-1] + (n // (2 * h), 2 * h))
-        u, v = x[..., :h], x[..., h:]
-        a = torch.cat([(u + v) % qb, ((u - v) * w[:, None, :]) % qb], dim=-1)
-        a = a.reshape(a.shape[:-2] + (n,))
-    return a
-
 
 def ntt(ring: Ring, a: torch.Tensor) -> torch.Tensor:
     """Negacyclic forward NTT. a: [..., K, n] -> [..., K, n] (eval domain)."""
-    q = ring.q_arr
-    a = (a * ring.psi_pow) % q                         # pre-twist
-    a = a.index_select(-1, ring.bitrev)
-    return _dit_stages(a, ring.stage_w, q, ring.n)
+    from repro_torch.kernels import ntt as NK      # NK imports this module
+    return NK.ntt_br(a, ring, fwd=True).index_select(-1, ring.bitrev)
 
 
 def intt(ring: Ring, a: torch.Tensor) -> torch.Tensor:
     """Negacyclic inverse NTT (includes n^-1 scaling)."""
-    q = ring.q_arr
-    a = _gs_stages(a, ring.stage_w_inv, q, ring.n)
-    a = a.index_select(-1, ring.bitrev)
-    return (a * ring.psi_inv_pow) % q                  # post-twist * n^-1
+    from repro_torch.kernels import ntt as NK
+    return NK.ntt_br(a.index_select(-1, ring.bitrev), ring, fwd=False)
 
 
 def negacyclic_mul(ring: Ring, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,22 +1,23 @@
 """Plan executor: fused batched filtering + encrypted order/top-k stages.
 
-The port of `repro.db.executor` (single table, no delta).  Execution:
+The port of `repro.db.executor` (single table).  Execution:
 
   1. FILTER.  Every scan leaf contributes 1 (Eq) or 2 (Range) atoms; ALL
      atoms of the predicate tree share one fused raw-eval pass
-     (`fused_eval`), in power-of-two row tiles of at most the lane
-     budget.  Each atom's decode threshold (profile τ or ε-derived) is
-     applied host-side.  Leaves whose column has a `SortedIndex` resolve
-     by encrypted binary search instead.
+     (`fused_eval`) over base ∪ delta, in power-of-two row tiles of at
+     most the lane budget.  Each atom's decode threshold (profile τ or
+     ε-derived) is applied host-side.  Leaves whose column has a
+     `SortedIndex` resolve by encrypted binary search instead, plus one
+     search of the pending delta run's own index.
   2. COMBINE.  Leaf masks -> boolean tree, host-side numpy.
   3. ORDER / TOPK.  `encrypted_sort` / `encrypted_topk` over the matches.
   4. LIMIT + PROJECT.
 
 Dispatch is by device.  On CUDA, a gadget-mode tile is ONE launch of
-the Eval kernel over the unique column stack (no per-atom copy, no
-digit tensor); paper mode raises until its kernel is ported.  On CPU the
-same tiles run the kernel's plain version (gadget) or the reference's
-paper-mode factoring (`dedup_eval`).
+the gadget Eval kernel over the unique column stack (no per-atom copy,
+no digit tensor); a paper-mode tile is one paper Eval launch per unique
+column plus one on the atom bounds (`dedup_eval`).  On CPU the same
+tiles run the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -43,10 +44,12 @@ class ExecStats:
     """What the engine actually did — benchmarks and tests assert on this."""
     eval_calls: int = 0            # batched Eval passes in the filter stage
     scan_compares: int = 0         # comparisons inside fused linear scans
-    index_compares: int = 0        # binary-search probe comparisons
+    index_compares: int = 0        # binary-search probe comparisons (the
+    #                                base index AND any delta-run index)
     scan_leaves: int = 0
     indexed_leaves: int = 0
     order_compares: int = 0        # sort / top-k network comparisons
+    delta_build_compares: int = 0  # lazy per-delta-run index builds
 
     @property
     def filter_compares(self) -> int:
@@ -73,26 +76,23 @@ def dedup_eval(ks: KeySet, uniq: Ciphertext, sel: np.ndarray,
     """Raw eval values [A, rows] of one row tile of a deduped column stack
     against the [A, 1] atom bounds — the reference's `jitted_dedup_eval`.
 
-    Gadget mode: one Eval-kernel launch (plain version on CPU) that
-    gathers each atom's column by `sel` inside the kernel.  Paper mode
-    (CPU only for now): `eval_value` is linear in the ciphertext pair, so
-    the column-side transform runs once per unique column and each atom
-    lane is a gather + coefficient-0 subtract — bit-identical values."""
+    Gadget mode: one Eval-kernel launch that gathers each atom's column
+    by `sel` inside the kernel.  Paper mode: `eval_value` is linear in
+    the ciphertext pair, so the column side is evaluated once per unique
+    column of the tile (the paper kernel's column form, addressed by row
+    offset, no copy) and once on the [A] bounds; each atom lane is then a
+    gather by `sel` + coefficient-0 subtract — bit-identical values."""
     if ks.params.mode != "paper":
         return KO.gadget_tile_values(ks, uniq, sel, bounds.c0[:, 0],
                                      bounds.c1[:, 0], row_offset, rows)
-    KO.require_paper_plain(uniq.c1)
-    rng = ks.ring
-
-    def g0(ct0, ct1):                 # coefficient-0 eval part: [..., K]
-        scaled = R.scalar_mul(rng, ct0, ks.params.scale)
-        keyed = R.negacyclic_mul(rng, ct1, ks.cek)
-        return R.add(rng, scaled, keyed)[..., :, 0]
-
     tile = slice(row_offset, row_offset + rows)
+    g_col = torch.stack([
+        KO.paper_coeff0(ks, Ciphertext(uniq.c0[u, tile], uniq.c1[u, tile]))
+        for u in range(uniq.c0.shape[0])])                  # [U, rows, K]
+    g_bnd = KO.paper_coeff0(ks, Ciphertext(bounds.c0[:, 0],
+                                           bounds.c1[:, 0]))  # [A, K]
     idx = torch.as_tensor(np.asarray(sel, np.int64), device=uniq.c0.device)
-    g_col = g0(uniq.c0[:, tile], uniq.c1[:, tile])[idx]
-    diff = (g_col - g0(bounds.c0, bounds.c1)) % rng.q_arr[:, 0]
+    diff = (g_col[idx] - g_bnd[:, None]) % ks.ring.q_arr[:, 0]
     return R.crt_centered(ks.params, diff)
 
 
@@ -211,17 +211,46 @@ def combine_tree(tree: Optional[tuple], leaf_masks: List[np.ndarray],
     raise ValueError(f"bad tree node {tree!r}")
 
 
+def delta_probe_index(ks: KeySet, table: Table, column: str,
+                      stats) -> Optional[SortedIndex]:
+    """The per-delta-run `SortedIndex` for an indexed union probe, with
+    its lazy-build compares attributed to `stats` exactly once per delta
+    state (shared by executor and QueryServer).  None without a delta."""
+    if table.n_delta == 0:
+        return None
+    cached = table._delta_index_cache.get(column)
+    fresh = not (cached is not None and cached[0] == table.version)
+    with obs.span("delta.index_build", column=column, fresh=fresh):
+        didx = table.delta_index(ks, column)
+    if fresh:
+        stats.delta_build_compares += didx.build_compares
+        obs.count("eval.lanes", didx.build_compares)
+    return didx
+
+
+def _probe(ks: KeySet, idx: SortedIndex, leaf) -> np.ndarray:
+    if isinstance(leaf, P.Range):
+        return idx.search_range(ks, leaf.lo, leaf.hi, eps=leaf.eps)
+    return idx.point_lookup(ks, leaf.value, eps=leaf.eps)
+
+
 def index_leaf_mask(ks: KeySet, table: Table, idx: SortedIndex,
                     leaf, stats: ExecStats) -> np.ndarray:
-    """Resolve one indexed leaf as a [table.scan_width] slot mask
-    (~2·log2 n probe compares)."""
+    """Resolve one indexed leaf over base ∪ delta as a
+    [table.scan_width] slot mask: ~2·log2(n_base) probe compares in the
+    base index, plus at most 2·ceil(log2 |delta|) in the pending delta
+    run's own index.  Base row ids are base slot ids; delta-local hits
+    shift past the base block."""
     before = idx.search_compares
-    if isinstance(leaf, P.Range):
-        rows = idx.search_range(ks, leaf.lo, leaf.hi, eps=leaf.eps)
-    else:
-        rows = idx.point_lookup(ks, leaf.value, eps=leaf.eps)
+    slots = [np.asarray(_probe(ks, idx, leaf), np.int64)]
     stats.index_compares += idx.search_compares - before
-    return rows_to_mask(rows, table.scan_width)
+    didx = delta_probe_index(ks, table, leaf.column, stats)
+    if didx is not None:
+        before = didx.search_compares
+        slots.append(table.n_padded
+                     + np.asarray(_probe(ks, didx, leaf), np.int64))
+        stats.index_compares += didx.search_compares - before
+    return rows_to_mask(np.concatenate(slots), table.scan_width)
 
 
 def filter_masks(ks: KeySet, table: Table, plan: P.CompiledPlan, *,
@@ -318,7 +347,7 @@ def execute(ks: KeySet, table: Table, query, *,
         leaf_masks = filter_masks(ks, table, plan, indexes=indexes,
                                   lane_budget=lane_budget, stats=stats)
         slot_mask = combine_tree(plan.tree, leaf_masks, table.scan_width)
-        slot_mask &= table.slot_valid      # pad slots excluded
+        slot_mask &= table.slot_valid      # pads AND tombstones excluded
         row_ids = table.slot_global_ids[np.nonzero(slot_mask)[0]]
         mask = rows_to_mask(row_ids, table.n_total)
         row_ids = order_rows(ks, table, plan.query, row_ids, stats)

@@ -13,8 +13,17 @@ executes against the table in one vectorized pass —
     batch mixing exact and ε-tolerant predicates still fuses.
 
 Per-query combine / order / limit stages then run on each query's own
-mask.  Joins (`submit_join`) and mutations (`submit_insert/delete/
-update`, `compact`) arrive with the join and write-path slices.
+mask.
+
+MUTATIONS interleave with queries on the same queue (`submit_insert` /
+`submit_delete` / `submit_update`): the drain splits the queue into
+maximal same-kind runs in submit order, so a query enqueued after an
+insert sees the inserted rows, and each query batch answers over base ∪
+delta (the shared fused scan widens by the delta block; the lane-batched
+index searches add ONE per-delta-run search per column).  `compact()`
+retires the pending delta between batches (`db.delta.compact`);
+`compact_threshold` triggers it once the delta outgrows the threshold.
+Joins (`submit_join`) arrive with the join slice.
 
 Usage (on the card; `--device cpu` runs the plain path):
   PYTHONPATH=src python -m repro_torch.db.query_serve --dataset hg38 \
@@ -34,6 +43,7 @@ import numpy as np
 from repro_torch import obs
 from repro_torch.core.ckks import eps_to_tau
 from repro_torch.core.keys import KeySet
+from repro_torch.db import delta as D
 from repro_torch.db import executor as X
 from repro_torch.db import plan as P
 from repro_torch.db.index import SortedIndex, _stack_cts
@@ -49,7 +59,28 @@ class BatchStats:
     eval_calls: int = 0
     scan_compares: int = 0
     index_compares: int = 0
+    delta_build_compares: int = 0  # lazy per-delta-run index builds
     wall_s: float = 0.0
+
+
+@dataclasses.dataclass
+class MutationResult:
+    """Outcome of one queued mutation: the inserted rows' global ids
+    (empty for a pure delete) and the newly-tombstoned row count."""
+    kind: str                      # "insert" | "delete" | "update"
+    row_ids: np.ndarray
+    deleted: int = 0
+
+
+@dataclasses.dataclass
+class _QueuedMutation:
+    """A submitted write: insert data, delete rows, or both (update).
+    The new rows encrypt under `seed`, or from pre-drawn `samples`."""
+    kind: str
+    rows: Optional[np.ndarray] = None
+    data: Optional[Dict[str, np.ndarray]] = None
+    seed: int = 0
+    samples: Optional[Dict[str, tuple]] = None
 
 
 class QueryServer:
@@ -57,11 +88,14 @@ class QueryServer:
 
     def __init__(self, ks: KeySet, table: Table, *,
                  indexes: Optional[Dict[str, SortedIndex]] = None,
-                 batch: int = 4, lane_budget: Optional[int] = None):
+                 batch: int = 4, compact_threshold: Optional[int] = None,
+                 lane_budget: Optional[int] = None):
         self.ks = ks
         self.table = table
         self.indexes = indexes or {}
         self.batch = int(batch)
+        self.compact_threshold = compact_threshold
+        self.compaction_log: list = []
         # per-launch eval-lane cap for the shared fused scans
         # (None = the kernels.ops policy default)
         self.lane_budget = lane_budget
@@ -72,17 +106,47 @@ class QueryServer:
 
     # -- queue -------------------------------------------------------------
 
+    def _enqueue(self, item, tenant: Optional[str]) -> int:
+        """Assign the next request id, remember its tenant, enqueue."""
+        qid = self._next_id
+        self._next_id += 1
+        if tenant is not None:
+            self._tenants[qid] = tenant
+        self._queue.append((qid, item))
+        return qid
+
     def submit(self, query, *, tenant: Optional[str] = None) -> int:
         """Enqueue a Query (or bare predicate); returns a request id.
         `tenant` labels the request for per-tenant metrics attribution."""
         if isinstance(query, P.Predicate):
             query = P.Query(where=query)
-        qid = self._next_id
-        self._next_id += 1
-        if tenant is not None:
-            self._tenants[qid] = tenant
-        self._queue.append((qid, query))
-        return qid
+        return self._enqueue(query, tenant)
+
+    def submit_insert(self, data: Dict[str, np.ndarray], seed: int = 0, *,
+                      samples: Optional[Dict[str, tuple]] = None,
+                      tenant: Optional[str] = None) -> int:
+        """Enqueue an insert of new rows (encrypted under `seed`, or from
+        pre-drawn `samples` as `Table.insert` takes them); resolves to a
+        `MutationResult` carrying the rows' global ids.  Queries
+        submitted AFTER this see the new rows."""
+        return self._enqueue(_QueuedMutation("insert", data=data, seed=seed,
+                                             samples=samples), tenant)
+
+    def submit_delete(self, rows, *, tenant: Optional[str] = None) -> int:
+        """Enqueue a tombstone of the given global row ids; resolves to
+        a `MutationResult` with the newly-dead count."""
+        return self._enqueue(_QueuedMutation(
+            "delete", rows=np.asarray(rows, np.int64)), tenant)
+
+    def submit_update(self, rows, data: Dict[str, np.ndarray],
+                      seed: int = 0, *,
+                      samples: Optional[Dict[str, tuple]] = None,
+                      tenant: Optional[str] = None) -> int:
+        """Enqueue an update (tombstone `rows` + insert replacements);
+        resolves to a `MutationResult` with the replacement global ids."""
+        return self._enqueue(_QueuedMutation(
+            "update", rows=np.asarray(rows, np.int64), data=data, seed=seed,
+            samples=samples), tenant)
 
     def clear_queue(self) -> int:
         """Drop every queued, not-yet-drained request; returns how many
@@ -110,14 +174,54 @@ class QueryServer:
         obs.count("server.queries", 1, tenant=tenant)
         obs.count("server.compares", stats.filter_compares, tenant=tenant)
 
-    def run(self) -> Dict[int, X.QueryResult]:
-        """Drain the queue in batches; returns {request id: result}."""
-        results: Dict[int, X.QueryResult] = {}
+    def run(self) -> Dict[int, object]:
+        """Drain the queue; returns {request id: result} (a `QueryResult`
+        per query, a `MutationResult` per mutation).  The queue splits
+        into maximal same-kind runs in submit order: query runs drain in
+        shared-launch batches, mutation runs apply in turn, so reads
+        observe exactly the writes submitted before them.  After a
+        mutation run, `compact_threshold` may trigger a compaction."""
+        results: Dict[int, object] = {}
         while self._queue:
-            chunk = self._queue[:self.batch]
-            self._queue = self._queue[self.batch:]
-            results.update(self._run_batch(chunk))
+            is_mut = isinstance(self._queue[0][1], _QueuedMutation)
+            n = 1
+            while (n < len(self._queue) and isinstance(
+                    self._queue[n][1], _QueuedMutation) == is_mut):
+                n += 1
+            chunk, self._queue = self._queue[:n], self._queue[n:]
+            if is_mut:
+                for qid, m in chunk:
+                    results[qid] = self._apply_mutation(m)
+                if (self.compact_threshold is not None
+                        and self.table.n_delta >= self.compact_threshold):
+                    self.compact()
+            else:
+                for i in range(0, len(chunk), self.batch):
+                    results.update(self._run_batch(chunk[i:i + self.batch]))
         return results
+
+    # -- mutations ---------------------------------------------------------
+
+    def _apply_mutation(self, m: _QueuedMutation) -> MutationResult:
+        table = self.table
+        with obs.span("server.mutation", kind=m.kind):
+            deleted = 0
+            if m.rows is not None:
+                deleted = table.delete(m.rows)
+            row_ids = np.zeros(0, np.int64)
+            if m.data is not None:
+                row_ids = table.insert(self.ks, m.data, m.seed,
+                                       samples=m.samples)
+        return MutationResult(m.kind, row_ids, deleted=deleted)
+
+    def compact(self):
+        """Retire the pending delta run NOW (between batches): fold it into
+        the base and merge it into every served index
+        (`db.delta.compact`).  Returns the `CompactionStats`, also
+        appended to `compaction_log`."""
+        stats = D.compact(self.ks, self.table, self.indexes)
+        self.compaction_log.append(stats)
+        return stats
 
     # -- batch execution ---------------------------------------------------
 
@@ -165,21 +269,38 @@ class QueryServer:
         # launches are counted once in BatchStats
         qstats = [X.ExecStats() for _ in plans]
 
-        # ONE lane-batched binary search per index (all queries together)
+        # ONE lane-batched binary search per index (all queries together);
+        # a pending delta run adds ONE more lane-batched search per column
+        # against its own (lazily built, cached) sorted run
         for column, cts in lane_cts.items():
             idx = self.indexes[column]
+            lanes = _stack_cts(cts)
+            strict = np.asarray(lane_strict[column])
+            taus = np.asarray(lane_taus[column], np.int64)
             before = idx.search_compares
-            pos = idx.search(ks, _stack_cts(cts),
-                             np.asarray(lane_strict[column]),
-                             np.asarray(lane_taus[column], np.int64))
+            pos = idx.search(ks, lanes, strict, taus)
             bstats.index_compares += idx.search_compares - before
-            counts = idx.last_probe_counts
+            counts = idx.last_probe_counts.copy()
+            didx = X.delta_probe_index(ks, table, column, bstats)
+            dpos = dcounts = None
+            if didx is not None:
+                before = didx.search_compares
+                dpos = didx.search(ks, lanes, strict, taus)
+                bstats.index_compares += didx.search_compares - before
+                dcounts = didx.last_probe_counts.copy()
             for j, (pi, li) in enumerate(lane_ref[column]):
                 l, r = int(pos[2 * j]), int(pos[2 * j + 1])
+                slots = [np.asarray(idx.perm[l:r], np.int64)]
                 qstats[pi].indexed_leaves += 1
                 qstats[pi].index_compares += int(counts[2 * j]
                                                  + counts[2 * j + 1])
-                leaf_masks[pi][li] = rows_to_mask(idx.perm[l:r], W)
+                if dpos is not None:
+                    dl, dr = int(dpos[2 * j]), int(dpos[2 * j + 1])
+                    slots.append(table.n_padded
+                                 + np.asarray(didx.perm[dl:dr], np.int64))
+                    qstats[pi].index_compares += int(
+                        dcounts[2 * j] + dcounts[2 * j + 1])
+                leaf_masks[pi][li] = rows_to_mask(np.concatenate(slots), W)
 
         # ONE fused Eval pass for every scan atom of every query
         if scan_atoms:
@@ -194,6 +315,8 @@ class QueryServer:
                 qstats[pi].scan_compares += count * W
                 qstats[pi].eval_calls = 1     # its share of the fused pass
 
+        # per-query combine + order/limit/project over the union slot
+        # space; pads and tombstones drop via slot_valid
         results: Dict[int, X.QueryResult] = {}
         for pi, (qid, plan) in enumerate(plans):
             stats = qstats[pi]

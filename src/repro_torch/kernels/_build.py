@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` compiles with `nvcc` into its own shared library
 with a plain C interface, loaded through `ctypes`.  The build runs at
 first use, all sources at once (one `nvcc` process each, in parallel),
 into `build/kernels/` at the repository root.  A library's file name
-carries a digest of its sources and flags, so an edited source rebuilds.
+carries a digest of its source, of every shared header (`csrc/*.cuh`)
+and of the flags, so an edited source or header rebuilds.
 
 Nothing here runs at import: a machine without `nvcc` (the CPU test
 machine) imports the package and only fails if a CUDA launch is asked
@@ -24,16 +25,36 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("cmp_eval", "ntt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+# library (csrc/<name>.cu) -> {C entry point: argtypes}; every entry
+# returns the CUDA error code of its launch as an int
+ENTRIES: Dict[str, Dict[str, list]] = {
+    "cmp_eval": {
+        "hades_eval_gadget": [_P, _P, _P, _P, _L, _L, _P, _P, _L, _P, _I,
+                              _I, _I, _I, _I, _I, _P],
+        "hades_eval_paper": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _L,
+                             _P, _L, _I, _I, _P],
+    },
+    "ntt": {
+        "hades_negacyclic_mul": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _P,
+                                 _I, _I, _P],
+        "hades_ntt_br": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _P],
+    },
+}
+SOURCES = tuple(ENTRIES)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # kernel name -> launches since the last reset; each wrapper adds one
-# exactly where it launches its kernel
-LAUNCHES: Dict[str, int] = {"eval_coeff0_gadget": 0, "negacyclic_mul": 0}
+# exactly where it launches its kernel (the two ntt_br directions apart)
+LAUNCHES: Dict[str, int] = {"eval_coeff0_gadget": 0, "eval_coeff0_paper": 0,
+                            "negacyclic_mul": 0, "ntt_br_fwd": 0,
+                            "ntt_br_inv": 0}
 
 
 def count_launch(name: str) -> None:
@@ -56,7 +77,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / "modarith.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhades_{name}_{h.hexdigest()[:12]}.so"
 
@@ -108,14 +129,10 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    if name == "cmp_eval":
-        fn = lib.hades_eval_gadget
-        fn.argtypes = [P, P, P, P, L, L, P, P, L, P, I, I, I, I, I, I, P]
-    else:
-        fn = lib.hades_negacyclic_mul
-        fn.argtypes = [P, L, P, L, P, L, P, P, P, P, P, I, I, P]
-    fn.restype = ctypes.c_int
+    for entry, argtypes in ENTRIES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
 
 
 def check(rc: int, what: str) -> None:

@@ -1,5 +1,6 @@
-"""Gadget-mode HADES Eval over a row tile: the CUDA kernel and its plain
-version.
+"""HADES Eval, coefficient 0: the CUDA kernels and their plain versions.
+
+Gadget mode (`eval_coeff0_gadget`) over a row tile of a scan:
 
 `eval_coeff0_gadget` returns, for each (atom a, row r) lane of a tile,
 the per-tower residues [A, rows, K] of coefficient 0 of
@@ -19,6 +20,17 @@ addressing the tile by offset into the column — no tile copy.  On CPU
 tensors it runs `eval_coeff0_gadget_plain`, the same arithmetic in
 PyTorch, in row chunks.  The reference kernel this replaces is
 `repro/kernels/cmp_eval.py::_eval_gadget_kernel`.
+
+Paper mode (`eval_coeff0_paper`) over lanes: the per-tower residues
+[B, K] of coefficient 0 of scale · d0 + d1 ⊛ cek with d = a - b (lane
+form, b possibly one polynomial for every lane) or d = a (column form:
+the rows of one column, evaluated once so that the executor subtracts
+the bounds' values afterwards; the Eval is linear mod q).  The key
+multiply's coefficient 0 is the dot product of d1 with the reversed
+paper CEK (`KeySet.cek_rev`, [K, n]), every term reduced mod q.  On CUDA
+tensors it launches `csrc/cmp_eval.cu`'s paper kernel once; on CPU
+tensors it runs `eval_coeff0_paper_plain`.  It replaces
+`repro/kernels/cmp_eval.py::_eval_paper_kernel`.
 """
 from __future__ import annotations
 
@@ -142,4 +154,95 @@ def eval_coeff0_gadget(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
         _build.count_launch("eval_coeff0_gadget")
         if dst is not out:
             out[idx] = dst
+    return out
+
+
+# ---------------------------------------------------------------------------
+# paper mode
+# ---------------------------------------------------------------------------
+
+def _check_paper(a0, a1, b0, b1, cek_rev, qs):
+    if (b0 is None) != (b1 is None):
+        raise ValueError("pass both of b0, b1 or neither")
+    tensors = [t for t in (a0, a1, b0, b1, cek_rev, qs) if t is not None]
+    if any(t.dtype != torch.int64 for t in tensors):
+        raise ValueError("eval_coeff0_paper takes int64 tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("eval_coeff0_paper operands on different devices")
+    if cek_rev.dim() != 2:
+        raise ValueError(f"cek_rev {tuple(cek_rev.shape)} is not [K, n]")
+    K, n = cek_rev.shape
+    if a1.dim() != 3 or tuple(a1.shape[1:]) != (K, n) \
+            or a0.shape != a1.shape:
+        raise ValueError(f"a0/a1 {tuple(a0.shape)}/{tuple(a1.shape)} are "
+                         f"not one [B, {K}, {n}]")
+    B = a1.shape[0]
+    if b0 is not None and (b0.shape != b1.shape or b1.dim() != 3
+                           or tuple(b1.shape[1:]) != (K, n)
+                           or b1.shape[0] not in (1, B)):
+        raise ValueError(f"b {tuple(b1.shape)} is not [{B} or 1, {K}, {n}]")
+    if tuple(qs.shape) != (K,):
+        raise ValueError(f"qs {tuple(qs.shape)} is not [{K}]")
+    return B, K, n
+
+
+def eval_coeff0_paper_plain(a0, a1, cek_rev, qs, scale, b0=None,
+                            b1=None) -> torch.Tensor:
+    """The kernel's function in PyTorch (any device; CPU in production)."""
+    B, K, n = _check_paper(a0, a1, b0, b1, cek_rev, qs)
+    q = qs[:, None]                                         # [K, 1]
+    out = torch.empty((B, K), dtype=torch.int64, device=a1.device)
+    step = max(1, _PLAIN_CHUNK_ELEMS // (K * n))
+    for r0 in range(0, B, step):
+        r1 = min(B, r0 + step)
+        d1, d0 = a1[r0:r1], a0[r0:r1, :, 0]
+        if b1 is not None:
+            sb = slice(r0, r1) if b1.shape[0] == B else slice(0, 1)
+            d1 = (d1 - b1[sb]) % q
+            d0 = (d0 - b0[sb, :, 0]) % qs
+        keyed = ((d1 * cek_rev) % q).sum(dim=-1) % qs       # [R, K]
+        out[r0:r1] = ((d0 * scale) % qs + keyed) % qs
+    return out
+
+
+def _rows(x: torch.Tensor, n: int):
+    """x [B, K, n] as rows the kernel addresses by one batch stride (0
+    when one polynomial serves every lane): a view when it already is
+    one, else a contiguous copy."""
+    if x.shape[0] == 1:
+        return x[0].contiguous(), 0
+    if x.stride()[1:] != (n, 1):
+        x = x.contiguous()
+    return x, x.stride(0)
+
+
+def eval_coeff0_paper(a0, a1, cek_rev, qs, scale, b0=None,
+                      b1=None) -> torch.Tensor:
+    """[B, K] coeff-0 residues of the paper Eval of lanes a (minus b).
+
+    a0/a1: [B, K, n] residues; b0/b1: [B, K, n], [1, K, n] (one
+    polynomial for every lane) or None (column form); cek_rev: [K, n];
+    qs: [K].  The CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    B, K, n = _check_paper(a0, a1, b0, b1, cek_rev, qs)
+    if not a1.is_cuda:
+        return eval_coeff0_paper_plain(a0, a1, cek_rev, qs, scale, b0, b1)
+    out = torch.empty((B, K), dtype=torch.int64, device=a1.device)
+    if B == 0:
+        return out
+    cek_rev, qs = cek_rev.contiguous(), qs.contiguous()
+    (pa0, sa0), (pa1, sa1) = _rows(a0, n), _rows(a1, n)
+    if b0 is None:
+        pb0 = pb1 = None
+        sb0 = sb1 = 0
+    else:
+        (pb0, sb0), (pb1, sb1) = _rows(b0, n), _rows(b1, n)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _build.load("cmp_eval")
+    rc = lib.hades_eval_paper(
+        ptr(pa0), sa0, ptr(pa1), sa1, ptr(pb0), sb0, ptr(pb1), sb1,
+        cek_rev.data_ptr(), qs.data_ptr(), int(scale), out.data_ptr(), B,
+        K, n, _build.stream_handle(a1.device))
+    _build.check(rc, "eval_coeff0_paper")
+    _build.count_launch("eval_coeff0_paper")
     return out

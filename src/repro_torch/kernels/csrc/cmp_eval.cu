@@ -1,4 +1,6 @@
-// Gadget-mode HADES Eval, coefficient 0, for every (atom, row) lane.
+// HADES Eval, coefficient 0: the gadget-mode kernel for every (atom, row)
+// lane of a scan tile, and the paper-mode kernel (further below) for
+// lane pairs or the rows of one column.
 //
 // Replaces the TPU kernel src/repro/kernels/cmp_eval.py::_eval_gadget_kernel
 // (wrapper eval_coeff0_gadget, pallas_call at cmp_eval.py:111).  Per lane
@@ -31,6 +33,9 @@
 
 #include "modarith.cuh"
 
+using hades::barrett_m;
+using hades::mulmod;
+using hades::reduce;
 using hades::submod;
 
 constexpr int kThreads = 256;
@@ -169,4 +174,105 @@ extern "C" int hades_eval_gadget(
     return launch_k<2>(c0, c1, bc0, bc1, b_astride, b_rstride, cek_rev, qs,
                        scale, out, A, rows, n, D, log_b, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Paper-mode HADES Eval, coefficient 0.
+//
+// Replaces the TPU kernel src/repro/kernels/cmp_eval.py::_eval_paper_kernel
+// (wrapper eval_coeff0_paper, pallas_call at cmp_eval.py:80).  Per lane r
+// and tower k it returns
+//
+//   ( scale * d0[k][0]  +  coeff0(d1[k] ⊛ cek[k]) )  mod q_k
+//
+// with d = a - b (lane form) or d = a (column form: the column side of the
+// executor's paper-mode factoring, and the bounds side, each evaluated once
+// and subtracted afterwards).  The TPU kernel gets there with an NTT round
+// trip per lane; this one uses coeff0(x ⊛ c) = <x, rev(c)>, rev(c)[0] =
+// c[0], rev(c)[i] = -c[n-i] mod q, against the reversed paper CEK
+// (`KeySet.cek_rev`, [K, n], precomputed once per key set).  Terms are
+// 31 x 31-bit, so each is Barrett-reduced before it is summed: n reduced
+// terms stay below 2^43, and one more reduction ends the lane.  a - b is
+// formed in registers as a + q - b; no difference tensor exists and no
+// signed % is used.
+//
+// Bound on this card: bytes.  A lane reads its K*n int64 words of c1 (64 KB
+// at paper-bfv), one coefficient of c0 per tower and, in the lane form, as
+// much of b (nothing when b has batch stride 0), against K*n reduced
+// multiply-adds: far below the integer rate per byte.  Design: one block
+// per lane, coalesced 8-byte reads, rev(cek) (64 KB) read through L2, the
+// per-tower sums met in warp shuffles and one shared-memory pass.  The
+// column form addresses a row tile of a table's column by pointer (the
+// wrapper passes the tile's first row), so no tile copy is made.
+
+template <bool HAS_B>
+__global__ void eval_paper_kernel(
+    const int64_t* __restrict__ a0, int64_t sa0,
+    const int64_t* __restrict__ a1, int64_t sa1,
+    const int64_t* __restrict__ b0, int64_t sb0,
+    const int64_t* __restrict__ b1, int64_t sb1,
+    const int64_t* __restrict__ cek_rev, const int64_t* __restrict__ qs,
+    int64_t scale, int64_t* __restrict__ out, int K, int n) {
+  const int64_t r = blockIdx.x;
+  __shared__ uint64_t red[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int k = 0; k < K; ++k) {
+    const uint32_t q = (uint32_t)qs[k];
+    const uint64_t m = barrett_m(q);
+    const int64_t* x = a1 + r * sa1 + (int64_t)k * n;
+    const int64_t* y = HAS_B ? b1 + r * sb1 + (int64_t)k * n : nullptr;
+    const int64_t* c = cek_rev + (int64_t)k * n;
+    uint64_t acc = 0;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const uint32_t d = HAS_B ? submod((uint32_t)x[i], (uint32_t)y[i], q)
+                               : (uint32_t)x[i];
+      acc += mulmod(d, (uint32_t)c[i], q, m);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) red[warp] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint64_t s = 0;
+      for (int w = 0; w < (int)((blockDim.x + 31) >> 5); ++w) s += red[w];
+      const uint32_t x0 = (uint32_t)a0[r * sa0 + (int64_t)k * n];
+      const uint32_t d0 =
+          HAS_B ? submod(x0, (uint32_t)b0[r * sb0 + (int64_t)k * n], q) : x0;
+      const uint32_t scaled = mulmod(d0, (uint32_t)((uint64_t)scale % q), q, m);
+      out[r * K + k] = (int64_t)reduce((uint64_t)scaled + reduce(s, q, m),
+                                       q, m);
+    }
+    __syncthreads();
+  }
+}
+
+// a0/a1: lane r's rows at r * sa0 / r * sa1 (elements), each K*n int64.
+// b0/b1: the same for the subtracted side, or both null (column form);
+// a stride of 0 repeats one polynomial for every lane.  cek_rev: [K, n].
+// out: [lanes, K] int64 residues.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int hades_eval_paper(
+    const void* a0, long long sa0, const void* a1, long long sa1,
+    const void* b0, long long sb0, const void* b1, long long sb1,
+    const void* cek_rev, const void* qs, long long scale, void* out,
+    long long lanes, int K, int n, void* stream) {
+  if (lanes == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned grid = (unsigned)lanes;
+  if (b0 != nullptr && b1 != nullptr)
+    eval_paper_kernel<true><<<grid, kThreads, 0, s>>>(
+        (const int64_t*)a0, sa0, (const int64_t*)a1, sa1,
+        (const int64_t*)b0, sb0, (const int64_t*)b1, sb1,
+        (const int64_t*)cek_rev, (const int64_t*)qs, scale, (int64_t*)out,
+        K, n);
+  else if (b0 == nullptr && b1 == nullptr)
+    eval_paper_kernel<false><<<grid, kThreads, 0, s>>>(
+        (const int64_t*)a0, sa0, (const int64_t*)a1, sa1, nullptr, 0,
+        nullptr, 0, (const int64_t*)cek_rev, (const int64_t*)qs, scale,
+        (int64_t*)out, K, n);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

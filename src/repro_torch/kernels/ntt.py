@@ -1,12 +1,16 @@
-"""Fused negacyclic multiply: the CUDA kernel and its plain version.
+"""Negacyclic NTT kernels: the fused multiply and the bit-reversed-order
+transform, each beside its plain version.
 
 `negacyclic_mul(a, b, ring)` computes a ⊛ b over [..., K, n] int64
-residues (batch dims broadcast).  On CUDA tensors it launches
-`csrc/ntt.cu` (the port of the reference's Pallas `_mul_kernel`); on CPU
-tensors it runs `negacyclic_mul_plain`, the same schedule in PyTorch:
-pre-twist, DIF stages (natural -> bit-reversed), pointwise product, DIT
-stages (bit-reversed -> natural), post-twist.  Inputs must be residues
-in [0, q).
+residues (batch dims broadcast): pre-twist, DIF stages (natural ->
+bit-reversed), pointwise product, DIT stages (bit-reversed -> natural),
+post-twist.  `ntt_br(x, ring, fwd=...)` is the forward half (pre-twist +
+DIF, natural -> bit-reversed) or the inverse half (DIT + post-twist,
+bit-reversed -> natural) on its own.  On CUDA tensors both launch
+`csrc/ntt.cu` (the port of the reference's Pallas `_mul_kernel`,
+`_ntt_kernel` and `_intt_kernel`); on CPU tensors they run
+`negacyclic_mul_plain` / `ntt_br_plain`, the same schedule in PyTorch.
+Inputs must be residues in [0, q).
 """
 from __future__ import annotations
 
@@ -57,6 +61,49 @@ def negacyclic_mul_plain(a: torch.Tensor, b: torch.Tensor,
     return (out * ring.psi_inv_pow) % q
 
 
+def ntt_br_plain(x: torch.Tensor, ring: R.Ring, *,
+                 fwd: bool = True) -> torch.Tensor:
+    """The kernel's function in PyTorch (any device; CPU in production)."""
+    q, n = ring.q_arr, ring.n
+    if fwd:
+        return _fwd_stages((x * ring.psi_pow) % q, ring.stage_w, q, n)
+    return (_inv_stages(x, ring.stage_w_inv, q, n) * ring.psi_inv_pow) % q
+
+
+def _check_poly(x: torch.Tensor, ring: R.Ring) -> None:
+    K, n = ring.num_towers, ring.n
+    if x.dtype != torch.int64 or tuple(x.shape[-2:]) != (K, n):
+        raise ValueError(f"expected int64 [..., {K}, {n}], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device != ring.device:
+        raise ValueError(f"operand on {x.device}, ring on {ring.device}")
+
+
+def ntt_br(x: torch.Tensor, ring: R.Ring, *, fwd: bool = True
+           ) -> torch.Tensor:
+    """Forward (natural -> bit-reversed, with the psi pre-twist) or
+    inverse (bit-reversed -> natural, with the psi^-1 n^-1 post-twist)
+    negacyclic NTT over [..., K, n]: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    _check_poly(x, ring)
+    if not x.is_cuda:
+        return ntt_br_plain(x, ring, fwd=fwd)
+    K, n = ring.num_towers, ring.n
+    rows = math.prod(x.shape[:-2])
+    src = x.reshape(rows, K, n).contiguous()
+    out = torch.empty_like(src)
+    tw, w = ((ring.psi_pow, ring.stage_w) if fwd
+             else (ring.psi_inv_pow, ring.stage_w_inv))
+    lib = _build.load("ntt")
+    rc = lib.hades_ntt_br(src.data_ptr(), out.data_ptr(), rows, tw.data_ptr(),
+                          w.data_ptr(), ring.q_arr.data_ptr(), K, n, int(fwd),
+                          _build.stream_handle(x.device))
+    _build.check(rc, "ntt_br")
+    if rows:
+        _build.count_launch("ntt_br_fwd" if fwd else "ntt_br_inv")
+    return out.reshape(x.shape)
+
+
 def _operand(x: torch.Tensor, batch: tuple, K: int, n: int):
     """x as rows of K*n contiguous int64, and its batch stride (0 when
     one polynomial serves every row)."""
@@ -72,12 +119,7 @@ def negacyclic_mul(a: torch.Tensor, b: torch.Tensor,
     version for CPU tensors."""
     K, n = ring.num_towers, ring.n
     for x in (a, b):
-        if x.dtype != torch.int64 or tuple(x.shape[-2:]) != (K, n):
-            raise ValueError(f"expected int64 [..., {K}, {n}], got "
-                             f"{x.dtype} {tuple(x.shape)}")
-    if a.device != b.device or a.device != ring.device:
-        raise ValueError(f"operands on {a.device}/{b.device}, ring on "
-                         f"{ring.device}")
+        _check_poly(x, ring)
     if not a.is_cuda:
         return negacyclic_mul_plain(a, b, ring)
     batch = tuple(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]))

@@ -1,14 +1,14 @@
-"""Public entry points over the kernels: the lane-budget policy and the
-kernel-backed raw Eval over arbitrary batches.
+"""Public entry points over the kernels: the lane-budget policy, the
+bit-reversed-order NTT, and the kernel-backed raw Eval over arbitrary
+batches in both modes.
 
 Dispatch is by device, with no fallback: a CUDA tensor reaches a kernel
-or raises, and only a CPU tensor runs a plain version.  Paper mode has
-no CUDA kernel yet (the reference's `_eval_paper_kernel` is the next
-slice), so paper-mode Eval on a CUDA tensor raises `NotImplementedError`.
+or raises, and only a CPU tensor runs a plain version.
 """
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -17,6 +17,7 @@ from repro_torch.core import ring as R
 from repro_torch.core.encrypt import Ciphertext
 from repro_torch.core.keys import KeySet
 from repro_torch.kernels import cmp_eval as CK
+from repro_torch.kernels import ntt as NK
 
 # ---------------------------------------------------------------------------
 # lane-budget policy: the one knob bounding every eval launch's working set
@@ -68,13 +69,14 @@ def lane_tile(n_rows: int, lanes_per_row: int,
 # raw Eval
 # ---------------------------------------------------------------------------
 
-def require_paper_plain(x: torch.Tensor) -> None:
-    """Paper-mode Eval runs only on the plain CPU path for now."""
-    if x.is_cuda:
-        raise NotImplementedError(
-            "paper-mode Eval on a CUDA tensor needs the eval_coeff0_paper "
-            "kernel (repro/kernels/cmp_eval.py::_eval_paper_kernel), which "
-            "is not ported yet; use mode='gadget' or CPU tensors")
+def ntt(x: torch.Tensor, ring: R.Ring) -> torch.Tensor:
+    """Forward negacyclic NTT, bit-reversed (br-eval) order. x: [B, K, n]."""
+    return NK.ntt_br(x, ring, fwd=True)
+
+
+def intt(x: torch.Tensor, ring: R.Ring) -> torch.Tensor:
+    """Inverse of `ntt`: br-eval order in, natural order out."""
+    return NK.ntt_br(x, ring, fwd=False)
 
 
 def gadget_tile_values(ks: KeySet, uniq: Ciphertext, sel, bounds0, bounds1,
@@ -89,13 +91,21 @@ def gadget_tile_values(ks: KeySet, uniq: Ciphertext, sel, bounds0, bounds1,
     return R.crt_centered(params, coeff0)
 
 
+def paper_coeff0(ks: KeySet, ct0: Ciphertext,
+                 ct1: Optional[Ciphertext] = None) -> torch.Tensor:
+    """Paper-mode coeff-0 residues [B, K] of ct0 - ct1 (ct1 [B, K, n] or
+    [1, K, n]), or of ct0 alone when ct1 is None (column form)."""
+    b0, b1 = (None, None) if ct1 is None else (ct1.c0, ct1.c1)
+    return CK.eval_coeff0_paper(ct0.c0, ct0.c1, ks.cek_rev,
+                                ks.ring.q_arr[:, 0], ks.params.scale,
+                                b0, b1)
+
+
 def eval_values(ks: KeySet, ct0: Ciphertext, ct1: Ciphertext) -> torch.Tensor:
     """Kernel-backed centered eval values of lane pairs (Alg. 2 lines
     2-4, no threshold).  ct0, ct1: [B, K, n] -> [B]."""
     if ks.params.mode == "paper":
-        require_paper_plain(ct0.c1)
-        from repro_torch.core.compare import eval_value
-        return eval_value(ks, ct0, ct1)
+        return R.crt_centered(ks.params, paper_coeff0(ks, ct0, ct1))
     B = ct0.c1.shape[0]
     uniq = Ciphertext(ct0.c0.contiguous()[None], ct0.c1.contiguous()[None])
     return gadget_tile_values(ks, uniq, np.zeros(1, np.int64),

@@ -1,6 +1,6 @@
 """Counters + histograms for the encrypted query engine: the part of
-`repro.obs.metrics` that the served path uses (the snapshot view and
-the join and compaction absorbers arrive with later slices).
+`repro.obs.metrics` that the served and write paths use (the snapshot
+view and the join absorber arrive with later slices).
 
 The registry is the aggregation layer OVER the per-call stats
 dataclasses (`ExecStats`, `BatchStats`): those stay as cheap always-on
@@ -150,3 +150,12 @@ def absorb_batch_stats(bstats, **labels) -> None:
     count("server.batch_scan_compares", bstats.scan_compares, **labels)
     count("server.batch_index_compares", bstats.index_compares, **labels)
     observe("server.batch_wall_s", bstats.wall_s, **labels)
+
+
+def absorb_compaction_stats(cstats, **labels) -> None:
+    """Fold one `CompactionStats` into the registry."""
+    if not _trace._enabled:
+        return
+    count("compact.runs", 1, **labels)
+    count("compact.merge_compares", cstats.merge_compares, **labels)
+    count("compact.indexes_merged", cstats.indexes_merged, **labels)

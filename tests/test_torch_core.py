@@ -21,6 +21,7 @@ from repro.core import ckks as RCK
 from repro.core import compare as RC
 from repro.core import encrypt as RE
 from repro.core import gadget as RG
+from repro.core import noise as RN
 from repro.core import ring as RR
 from repro.core import sampling as RS
 from repro.core.keys import keygen as ref_keygen
@@ -30,6 +31,7 @@ from repro_torch.core import ckks as TCK
 from repro_torch.core import compare as TC
 from repro_torch.core import encrypt as TE
 from repro_torch.core import gadget as TG
+from repro_torch.core import noise as TN
 from repro_torch.core import ring as TR
 from repro_torch.core import sampling as TS
 from repro_torch.core.keys import KeySet
@@ -274,6 +276,42 @@ def test_keygen_injected_samples_match_reference(mode, profile, weight):
         q = np.asarray(rp.qs)[:, None]
         assert np.array_equal(rev[..., 0], c[..., 0])
         assert np.array_equal(rev[..., 1:], (-c[..., :0:-1]) % q)
+
+
+@pytest.mark.parametrize("mode", ["gadget", "paper"])
+def test_keygen_eager_eval_domain_cek(mode):
+    """A gadget KeySet holds its CEK's eval domain as the reference does
+    (a field set when the KeySet is made, not computed on request); a
+    paper KeySet has none, and its reversed CEK is the [K, n] paper one.
+    (keygen's own `cek_gadget_ntt` is held against the reference in
+    test_keygen_injected_samples_match_reference.)"""
+    if mode == "gadget":
+        ref = get_scheme_ks("test-bfv")
+        tks = ks_to_torch(ref)
+        assert "cek_gadget_ntt" not in tks._cache
+        assert isinstance(tks.cek_gadget_ntt, torch.Tensor)
+        assert np.array_equal(n_(tks.cek_gadget_ntt), ref.cek_gadget_ntt)
+        return
+    tks = torch_keygen(torch_make_params("test-bfv", mode="paper"), 3,
+                       device=CPU, paper_ecek_weight=0)
+    assert tks.cek_gadget_ntt is None
+    c, rev = n_(tks.cek), n_(tks.cek_rev)
+    q = np.asarray(tks.params.qs)[:, None]
+    assert rev.shape == (tks.params.num_towers, tks.params.n)
+    assert np.array_equal(rev[:, 0], c[:, 0])
+    assert np.array_equal(rev[:, 1:], (-c[:, :0:-1]) % q)
+
+
+@pytest.mark.parametrize("mode", ["paper", "gadget"])
+@pytest.mark.parametrize("profile", sorted(REF_PROFILES))
+def test_noise_predict_matches_reference(profile, mode):
+    rp = ref_make_params(profile, mode=mode)
+    tp = params_to_torch(rp)
+    assert (dataclasses.asdict(TN.predict(tp))
+            == dataclasses.asdict(RN.predict(rp)))
+    for sigmas in (1.0, 6.0):
+        assert (TN.compare_is_sound(tp, sigmas)
+                == RN.compare_is_sound(rp, sigmas))
 
 
 def test_keygen_own_samples_roundtrip():

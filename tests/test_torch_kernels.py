@@ -26,10 +26,15 @@ from repro.core import compare as RC
 from repro.core import encrypt as RE
 from repro.core import ring as RR
 from repro.core.gadget import digit_decompose
+from repro.core.keys import KeySet as RefKeySet
+from repro.core.params import make_params as ref_make_params
 from repro.kernels import cmp_eval as RCK
 from repro.kernels import ops as RKO
 from repro_torch.core import compare as TC
 from repro_torch.core import ring as TR
+from repro_torch.core.encrypt import Ciphertext as TCiphertext
+from repro_torch.core.keys import keygen as torch_keygen
+from repro_torch.core.params import make_params as torch_make_params
 from repro_torch.kernels import _build
 from repro_torch.kernels import cmp_eval as TCK
 from repro_torch.kernels import ntt as TNK
@@ -191,6 +196,148 @@ def test_mul_rejects_bad_operands():
 
 
 # ---------------------------------------------------------------------------
+# ntt_br: the plain version vs the reference kernel; ring.ntt through it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,towers,batch", [(64, 1, 3), (256, 2, 8),
+                                            (512, 2, 5)])
+def test_plain_ntt_br_matches_reference_kernel(n, towers, batch, rng):
+    """Both directions against the reference's Pallas `ntt_br` (interpret
+    mode, through `kernels.ops.ntt`/`intt`), on natural- and
+    bit-reversed-order inputs; the round trip is the identity."""
+    rp, tp = sweep_params(n, towers)
+    rring, tring = RR.make_ring(rp), TR.make_ring(tp, "cpu")
+    x = rng.integers(0, np.asarray(rp.qs)[:, None], size=(batch, towers, n))
+    fwd = RKO.ntt(jnp.asarray(x), rring, interpret=True)
+    inv = RKO.intt(jnp.asarray(x), rring, interpret=True)
+    assert np.array_equal(n_(TNK.ntt_br_plain(t_(x), tring)), fwd)
+    assert np.array_equal(n_(TNK.ntt_br_plain(t_(x), tring, fwd=False)),
+                          inv)
+    assert np.array_equal(n_(TKO.ntt(t_(x), tring)), fwd)
+    assert np.array_equal(n_(TKO.intt(t_(x), tring)), inv)
+    assert np.array_equal(n_(TNK.ntt_br(t_(np.asarray(fwd)), tring,
+                                        fwd=False)), x)
+    # leading batch dims flatten and come back
+    got = TNK.ntt_br(t_(x).reshape((1, batch, towers, n)), tring)
+    assert got.shape == (1, batch, towers, n)
+    assert np.array_equal(n_(got[0]), fwd)
+
+
+@pytest.mark.parametrize("n,towers", [(64, 1), (256, 2)])
+def test_ring_ntt_diagonalises_negacyclic_mul(n, towers, rng):
+    """ring.ntt/intt (ntt_br and the bit-reversal gather, an involution)
+    against the schoolbook oracle: intt(ntt(a) * ntt(b)) = a ⊛ b, and
+    intt(ntt(a)) = a."""
+    _, tp = sweep_params(n, towers)
+    ring = TR.make_ring(tp, "cpu")
+    a, b = (t_(rng.integers(0, np.asarray(tp.qs)[:, None], size=(towers, n)))
+            for _ in range(2))
+    assert torch.equal(ring.bitrev[ring.bitrev], torch.arange(n))
+    prod = TR.pointwise_mul(ring, TR.ntt(ring, a), TR.ntt(ring, b))
+    assert torch.equal(TR.intt(ring, prod),
+                       TR.naive_negacyclic_mul(ring, a, b))
+    assert torch.equal(TR.intt(ring, TR.ntt(ring, a)), a)
+
+
+# ---------------------------------------------------------------------------
+# paper Eval: the plain version vs the reference kernel and eval_value
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _paper_ks(profile):
+    """(reference, port) paper-mode KeySets over the port's CPU keygen's
+    keys, with a seeded uniform CEK [K, n] beside them (the Eval's
+    arithmetic takes any CEK, and the reference's eager keygen would
+    cost 5-10 s of compiles), and the reference kernel's br-order CEK
+    (jitted: eagerly its NTT compiles for 5 s)."""
+    tks = torch_keygen(torch_make_params(profile, mode="paper"), 11,
+                       device="cpu", paper_ecek_weight=0)
+    rp = ref_make_params(profile, mode="paper")
+    rng = np.random.default_rng(11)
+    cek = rng.integers(0, np.asarray(rp.qs)[:, None],
+                       size=(rp.num_towers, rp.n))
+    ref = RefKeySet(params=rp, ring=RR.make_ring(rp),
+                    **{k: jnp.asarray(n_(getattr(tks, k)))
+                       for k in ("sk", "pk0", "pk1")},
+                    cek=jnp.asarray(cek), cek_gadget=None,
+                    cek_gadget_ntt=None)
+    return ref, ks_to_torch(ref), jax.jit(lambda: RCK.cek_to_br(ref))()
+
+
+def _ct(c0, c1):
+    """Two residue arrays as a port Ciphertext on the CPU."""
+    return TCiphertext(t_(c0), t_(c1))
+
+
+def _residues(rp, rng, *shape):
+    return rng.integers(0, np.asarray(rp.qs)[:, None],
+                        size=shape + (rp.num_towers, rp.n))
+
+
+@pytest.mark.parametrize("profile", ["test-bfv", "test-ckks"])
+def test_plain_paper_eval_matches_reference_kernel(profile, rng):
+    """Lane form (a - b, b per lane or one for every lane) and column
+    form (a alone) against the reference's Pallas `eval_coeff0_paper`
+    (interpret mode) on the same differences, and `eval_values` against
+    `eval_value`."""
+    ref_ks, tks, cek_br = _paper_ks(profile)
+    rp = ref_ks.params
+    a0, a1, b0, b1 = (_residues(rp, rng, 24) for _ in range(4))
+
+    @jax.jit
+    def ref_kernel(x0, x1, y0, y1):
+        d = RC.ct_sub(ref_ks.ring, RE.Ciphertext(x0, x1),
+                      RE.Ciphertext(y0, y1))
+        return RCK.eval_coeff0_paper(d.c0, d.c1, cek_br, ref_ks.ring,
+                                     rp.scale, interpret=True)
+    args = (tks.cek_rev, tks.ring.q_arr[:, 0], rp.scale)
+    want = ref_kernel(a0, a1, b0, b1)
+    got = TCK.eval_coeff0_paper(t_(a0), t_(a1), *args, t_(b0), t_(b1))
+    assert got.shape == (24, rp.num_towers)
+    assert np.array_equal(n_(got), want)
+    # one bound for every lane (batch stride 0 on the card)
+    want = ref_kernel(a0, a1, np.broadcast_to(b0[:1], a0.shape),
+                      np.broadcast_to(b1[:1], a1.shape))
+    got = TCK.eval_coeff0_paper(t_(a0), t_(a1), *args, t_(b0[:1]),
+                                t_(b1[:1]))
+    assert np.array_equal(n_(got), want)
+    # column form: the rows alone, and a row tile addressed as a view
+    want = RCK.eval_coeff0_paper(jnp.asarray(a0), jnp.asarray(a1), cek_br,
+                                 ref_ks.ring, rp.scale, interpret=True)
+    assert np.array_equal(n_(TCK.eval_coeff0_paper(t_(a0), t_(a1), *args)),
+                          want)
+    old = TCK._PLAIN_CHUNK_ELEMS
+    try:
+        TCK._PLAIN_CHUNK_ELEMS = 3 * rp.num_towers * rp.n   # 3 rows a chunk
+        got = TCK.eval_coeff0_paper(t_(a0)[5:16], t_(a1)[5:16], *args)
+    finally:
+        TCK._PLAIN_CHUNK_ELEMS = old
+    assert np.array_equal(n_(got), want[5:16])
+    # kernels.ops: centered eval values equal core.compare.eval_value
+    a, b = _ct(a0, a1), _ct(b0, b1)
+    ref_vals = jax.jit(lambda x, y: RC.eval_value(ref_ks, x, y))(
+        RE.Ciphertext(jnp.asarray(a0), jnp.asarray(a1)),
+        RE.Ciphertext(jnp.asarray(b0), jnp.asarray(b1)))
+    assert np.array_equal(n_(TKO.eval_values(tks, a, b)), ref_vals)
+    assert np.array_equal(n_(TC.eval_value(tks, a, b)), ref_vals)
+
+
+def test_paper_eval_rejects_bad_operands(rng):
+    _, tks, _ = _paper_ks("test-bfv")
+    rp = tks.params
+    a = t_(_residues(rp, rng, 4))
+    args = (tks.cek_rev, tks.ring.q_arr[:, 0], rp.scale)
+    assert TCK.eval_coeff0_paper(a, a, *args, a, a).shape == (4, rp.num_towers)
+    for bad, msg in (((a, a, *args, a, None), "both"),
+                     ((a, a, *args, a[:3], a[:3]), r"\[4 or 1"),
+                     ((a, a[:2], *args), "not one"),
+                     ((a.to(torch.int32), a, *args), "int64"),
+                     ((a, a, tks.cek_rev[None], *args[1:]), r"\[K, n\]")):
+        with pytest.raises(ValueError, match=msg):
+            TCK.eval_coeff0_paper(*bad)
+
+
+# ---------------------------------------------------------------------------
 # kernels.ops: lane-budget policy, eval_values / compare in both modes
 # ---------------------------------------------------------------------------
 
@@ -247,22 +394,43 @@ def test_cpu_wrappers_count_no_launch(bfv_keys):
     tks = ks_to_torch(bfv_keys)
     _build.reset_launch_counts()
     ct_a, ct_b = _operands("test-bfv")
-    TKO.eval_values(tks, ct_to_torch(ct_a), ct_to_torch(ct_b))
+    a, b = ct_to_torch(ct_a), ct_to_torch(ct_b)
+    TKO.eval_values(tks, a, b)
+    TKO.eval_values(_paper_ks("test-bfv")[1], a, b)
     TR.negacyclic_mul(tks.ring, tks.pk0, tks.sk)
-    assert _build.LAUNCHES == {"eval_coeff0_gadget": 0, "negacyclic_mul": 0}
+    TR.intt(tks.ring, TR.ntt(tks.ring, tks.pk0))
+    assert set(_build.LAUNCHES) == {"eval_coeff0_gadget", "eval_coeff0_paper",
+                                    "negacyclic_mul", "ntt_br_fwd",
+                                    "ntt_br_inv"}
+    assert not any(_build.LAUNCHES.values())
 
 
-def test_build_sources_and_missing_compiler():
-    """Every kernel source is in the package with its note, library
-    names follow the sources' digest, and a machine without nvcc fails
-    at build time (never at import)."""
+def test_build_sources_and_missing_compiler(tmp_path, monkeypatch):
+    """Every kernel source is in the package with its note and declares
+    exactly the entry points of its library's table, library names
+    follow a digest of the source AND every shared header, and a
+    machine without nvcc fails at build time (never at import)."""
+    import re
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces the TPU kernel src/repro/kernels/" in src
         assert "Bound on this card" in src
-        assert 'extern "C" int hades_' in src
+        assert (set(re.findall(r'extern "C" int (hades_\w+)', src))
+                == set(_build.ENTRIES[name]))
         assert _build._lib_path(name).parent == _build.BUILD_DIR
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {
+        "modarith.cuh", "ntt_stages.cuh"}
+    # a header change renames every library (no stale .so is loaded)
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    before = {n: _build._lib_path(n).name for n in _build.SOURCES}
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert {n: _build._lib_path(n).name for n in _build.SOURCES} == before
+    with open(tmp_path / "ntt_stages.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._lib_path(n).name for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
     if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
         return
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -341,3 +509,42 @@ def test_cuda_mul_kernel_equals_plain(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     assert _build.LAUNCHES["negacyclic_mul"] == before + 3
+
+
+@pytest.mark.gpu
+def test_cuda_paper_eval_and_ntt_br_kernels_equal_plain(cuda):
+    """The paper Eval in both forms (b per lane, b for every lane, none,
+    a row-tile view) and ntt_br in both directions, on the card."""
+    _, cks, _ = _paper_ks("test-bfv")
+    from repro_torch.core.keys import KeySet
+    tp = cks.params
+    ks = KeySet.from_numpy(tp, sk=cks.sk, pk0=cks.pk0, pk1=cks.pk1,
+                           cek=cks.cek, device=cuda)
+    qs = ks.ring.q_arr[:, 0]
+
+    def rand(*shape):
+        return torch.stack([torch.randint(0, int(q), shape + (tp.n,),
+                                          device=cuda) for q in qs.tolist()],
+                           dim=-2)
+    a0, a1, b0, b1 = rand(300), rand(300), rand(300), rand(300)
+    args = (ks.cek_rev, qs, tp.scale)
+    before = dict(_build.LAUNCHES)
+    for b in ((b0, b1), (b0[:1], b1[:1]), (None, None)):
+        got = TCK.eval_coeff0_paper(a0, a1, *args, *b)
+        want = TCK.eval_coeff0_paper_plain(a0, a1, *args, *b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    got = TCK.eval_coeff0_paper(a0[40:90], a1[40:90], *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, TCK.eval_coeff0_paper_plain(
+        a0[40:90].clone(), a1[40:90].clone(), *args))
+    for fwd in (True, False):
+        got = TNK.ntt_br(a0[:33], ks.ring, fwd=fwd)
+        want = TNK.ntt_br_plain(a0[:33], ks.ring, fwd=fwd)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(TR.intt(ks.ring, TR.ntt(ks.ring, a0[:5])), a0[:5])
+    assert _build.LAUNCHES["eval_coeff0_paper"] == \
+        before["eval_coeff0_paper"] + 4
+    assert _build.LAUNCHES["ntt_br_fwd"] == before["ntt_br_fwd"] + 2
+    assert _build.LAUNCHES["ntt_br_inv"] == before["ntt_br_inv"] + 2
