@@ -5,18 +5,25 @@
 
 Phases, each printing one JSON line:
 
-  1. build   — compile every kernel from src/repro_torch/kernels/csrc.
+  1. build   — compile every kernel from src/repro_torch/kernels/csrc;
+               each kernel's registers, stack and spills (ptxas), and the
+               tensor-core (IMMA) instructions of the gadget Eval.
   2. serve   — the read path, after a warm-up on 4,096 rows: keygen
                (paper-bfv, gadget mode; its eval-domain CEK runs the
-               forward NTT kernel), the full hg38 column (34,423 rows,
-               padded to 65,536) encrypted on the card, a
+               forward NTT kernel, a*sk the two-varying multiply), the
+               full hg38 column (34,423 rows, padded to 65,536)
+               encrypted on the card (pk0 and pk1 transformed once, then
+               the key multiply), a
                QueryServer(batch=4) answering 8 requests.
   3. kernels — each serve-path kernel against its plain PyTorch version
                on the card, byte-equal (torch.equal; residues are
                integers, so the tolerance is 0), on the served column at
                every tile shape the served batches gave the Eval kernel,
-               plus edge shapes; kernel and plain times by CUDA events;
-               bounds from the bytes and the card's integer multiply-add
+               plus edge shapes and a tile of the largest digits; the
+               multiply against each key's transform at every row count
+               the paths give it; kernel and plain times by CUDA events;
+               bounds from the bytes, the card's integer multiply-add
+               rate and (the gadget Eval) its dense INT8 tensor-core
                rate.
   4. profile — the same requests traced and under torch.profiler:
                engine counters, span totals, device busy share, device
@@ -58,6 +65,7 @@ from __future__ import annotations
 
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -84,13 +92,20 @@ HBM_BYTES_PER_S = 3.35e12
 # at most one per such lane and clock, so SMs x 64 x the maximum SM
 # clock is the most the card can do of them.
 INT32_LANES_PER_SM = 64
+# dense INT8 tensor-core operations per second of one H100 SXM (NVIDIA
+# data sheet, without sparsity, at 700 W): the gadget Eval's u8 product
+INT8_TC_OPS_PER_S = 1979e12
 
 
-# the kernels each driven path must launch (keygen's eval-domain gadget
-# CEK puts the forward NTT on the serve path)
-SERVE_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul", "ntt_br_fwd")
+# the kernels each driven path must launch: keygen's a*sk is the multiply
+# with two varying operands, its eval-domain gadget CEK and the key
+# transforms (KeySet.key_br, once per key) run the forward NTT, and every
+# encryption and decryption the multiply against a key transform
+SERVE_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt",
+                 "negacyclic_mul", "ntt_br_fwd")
 KEYMUL_KERNELS = ("ntt_br_fwd", "ntt_br_inv")
-WRITE_KERNELS = ("eval_coeff0_paper", "negacyclic_mul")
+WRITE_KERNELS = ("eval_coeff0_paper", "negacyclic_mul_ntt",
+                 "negacyclic_mul", "ntt_br_fwd")
 
 
 def emit(obj) -> None:
@@ -138,43 +153,52 @@ def int_mac_rate() -> dict:
             "int_macs_per_s": sms * INT32_LANES_PER_SM * mhz * 1e6}
 
 
-def _bound(nbytes: int, macs: int, rate: dict) -> dict:
+def _bound(nbytes: int, ops: int, ops_per_s: float) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = macs / rate["int_macs_per_s"] * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes, "ops_ms": t_ops,
-            "bytes": nbytes, "int_macs": macs}
+            "bytes": nbytes, "ops": ops, "ops_per_s": ops_per_s}
 
 
 def eval_bound(A: int, T: int, K: int, n: int, D: int, per_lane: bool,
                rate: dict) -> dict:
     """Gadget Eval over A atoms x T rows: read the tile's c1 and c0
     coefficient 0, the bounds (one per atom, or per lane) and cek_rev
-    once, write [A, T, K]; A*T*K*(K*D*n) integer multiply-adds."""
+    once, write [A, T, K]; the byte-split product is A*T lanes x (K n
+    D4) digit bytes (D rounded up to whole 4-byte words) x 8 byte columns
+    u8 multiply-adds, 2 operations each, at the dense INT8 tensor-core
+    rate."""
     nb = A * T if per_lane else A
     nbytes = 8 * (T * K * n + T * K + nb * (K * n + K) + K * D * K * n
                   + A * T * K)
-    return _bound(nbytes, A * T * K * K * D * n, rate)
+    words = -(-D // 4)
+    d4 = 4 * (1 << (words - 1).bit_length())
+    return _bound(nbytes, A * T * K * n * d4 * 8 * 2, INT8_TC_OPS_PER_S)
 
 
-def mul_bound(B: int, K: int, n: int, b_rows: int, rate: dict) -> dict:
-    """Fused multiply over B rows: read a, b (b_rows rows) and the twiddle
-    tables once, write B rows; one multiply-add per modular multiply, per
-    (row, tower) 4n for twists and pointwise + 1.5 n log2 n butterflies."""
+def mul_bound(B: int, K: int, n: int, b_rows: int, rate: dict, *,
+              key_ntt: bool) -> dict:
+    """Fused multiply over B rows: read a (and b, b_rows rows, or the
+    key's transform as [K, n] 32-bit pairs) and the Shoup tables ([K, 4,
+    n] pairs) once, write B rows; one multiply-add per modular multiply:
+    per (row, tower) twists and pointwise 3n and n log2 n butterflies
+    for two transforms (key_ntt), 4n and 1.5 n log2 n for three."""
     S = n.bit_length() - 1
-    nbytes = 8 * (2 * B * K * n + b_rows * K * n + 2 * K * n
-                  + 2 * K * S * (n // 2))
-    return _bound(nbytes, B * K * (4 * n + 3 * (n // 2) * S), rate)
+    ops = 3 * n + n * S if key_ntt else 4 * n + 3 * (n // 2) * S
+    b_bytes = 8 * K * n if key_ntt else 8 * b_rows * K * n
+    nbytes = 8 * 2 * B * K * n + b_bytes + 8 * 4 * K * n
+    return _bound(nbytes, B * K * ops, rate["int_macs_per_s"])
 
 
 def ntt_bound(B: int, K: int, n: int, rate: dict) -> dict:
     """ntt_br over B rows (either direction): read x and its twist and
-    twiddle tables once, write B rows; n twist multiplies + n/2 log2 n
+    twiddle pairs once, write B rows; n twist multiplies + n/2 log2 n
     butterflies per (row, tower)."""
     S = n.bit_length() - 1
-    nbytes = 8 * (2 * B * K * n + K * n + K * S * (n // 2))
-    return _bound(nbytes, B * K * (n + (n // 2) * S), rate)
+    nbytes = 8 * (2 * B * K * n + 2 * K * n)
+    return _bound(nbytes, B * K * (n + (n // 2) * S), rate["int_macs_per_s"])
 
 
 def paper_bound(B: int, K: int, n: int, lane_form: bool, b_rows: int,
@@ -184,14 +208,43 @@ def paper_bound(B: int, K: int, n: int, lane_form: bool, b_rows: int,
     [B, K]; one multiply-add per c1 coefficient."""
     rows = B + (b_rows if lane_form else 0)
     nbytes = 8 * (rows * (K * n + K) + K * n + K + B * K)
-    return _bound(nbytes, B * K * n, rate)
+    return _bound(nbytes, B * K * n, rate["int_macs_per_s"])
 
 
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
+def _ptxas(log: str) -> list:
+    """Registers, spills and stack of each kernel from `nvcc -Xptxas -v`
+    output: [{kernel, registers, spill_stores, spill_loads, stack}]."""
+    import re
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    names = subprocess.run(["c++filt"], input="\n".join(
+        k["kernel"] for k in out), capture_output=True, text=True,
+        timeout=60).stdout.splitlines() if shutil.which("c++filt") else []
+    for k, name in zip(out, names):
+        k["kernel"] = name.split("(")[0]
+    return out
+
+
 def phase_build() -> dict:
+    """Build every library; each kernel's registers and spills, and the
+    tensor-core instructions (IMMA) in the gadget Eval's machine code."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     per_source = _build.build_all()
@@ -202,10 +255,15 @@ def phase_build() -> dict:
     for name in _build.SOURCES:
         log = _build.BUILD_DIR / f"{name}.log"
         if log.exists():
-            out[f"ptxas_{name}"] = [ln.split("ptxas info    : ")[-1]
-                                    for ln in log.read_text().splitlines()
-                                    if "Used" in ln]
+            out[f"ptxas_{name}"] = _ptxas(log.read_text())
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(
+        "cmp_eval"))], capture_output=True, text=True, timeout=300).stdout
+    out["imma_instructions_cmp_eval"] = sum("IMMA" in ln
+                                            for ln in sass.splitlines())
     emit(out)
+    require(out["imma_instructions_cmp_eval"] > 0,
+            "the gadget Eval has no tensor-core (IMMA) instruction")
     return out
 
 
@@ -219,9 +277,13 @@ def phase_kernels(ks, table, serve, rate) -> dict:
     bounds; a 1,024-lane tile with per-lane bounds (the sort and probe
     layout); and, over 256 rows of a random two-column stack, atom
     counts that reach every atom-chunk width of the kernel, a partial
-    last chunk, and the wrapper's split by column.  Multiply: [64, 2,
-    4096] (full and stride-0 second operand) and an encryption chunk
-    [8192, 2, 4096] x pk0."""
+    last chunk, and the wrapper's split by column; and a 1,024-lane tile
+    whose differences are all q - 1 (bound = c1 + 1), the largest digits.
+    Multiply against a key transform (negacyclic_mul_ntt): pk0, pk1 and
+    sk at every row count the paths give it (an encryption chunk of
+    8,192, the column's last chunk, an insert chunk, a decrypted sample,
+    one row); with two varying operands (negacyclic_mul): [64, 2, 4096]
+    full and stride 0, and an encryption chunk against pk0."""
     import torch
     from repro_torch.core import sampling
     from repro_torch.core.encrypt import ENC_CHUNK_ROWS
@@ -245,9 +307,11 @@ def phase_kernels(ks, table, serve, rate) -> dict:
             "a served batch's compares are not whole scans")
 
     def ev(kernel, uniq, off, rows, sel, b0, b1):
-        fn = CK.eval_coeff0_gadget if kernel else CK.eval_coeff0_gadget_plain
-        return fn(uniq[0], uniq[1], off, rows, sel, b0, b1, ks.cek_rev, qs,
-                  params.scale, lb)
+        args = (uniq[0], uniq[1], off, rows, sel, b0, b1, ks.cek_rev, qs,
+                params.scale, lb)
+        if kernel:
+            return CK.eval_coeff0_gadget(*args, cek_bytes=ks.cek_rev_bytes)
+        return CK.eval_coeff0_gadget_plain(*args)
 
     def bounds(*shape):
         return (sampling.uniform_poly(params, gen, shape),
@@ -262,9 +326,12 @@ def phase_kernels(ks, table, serve, rate) -> dict:
         tiles.append((A, T, b))
         for off in (0, W - T):
             cases.append((table_stack, off, T, [0] * A, *b))
-    lanes = 1024
+    lanes = min(1024, W)
     per_lane = (table_stack, W - lanes, lanes, [0], *bounds(1, lanes))
     cases.append(per_lane)
+    top = slice(W - lanes, W)           # d = q - 1 on every coefficient
+    cases.append((table_stack, W - lanes, lanes, [0], col.c0[None, top],
+                  ((col.c1[top] + 1) % ring.q_arr)[None]))
     for A in (1, 2, 3, 4, 5, 8, 9, 17):
         cases.append((pair_stack, 0, 256, [0] * A, *bounds(A)))
     for A in (3, 10):
@@ -290,22 +357,40 @@ def phase_kernels(ks, table, serve, rate) -> dict:
     a64 = sampling.uniform_poly(params, gen, (64,))
     b64 = sampling.uniform_poly(params, gen, (64,))
     mul_eq, mul_errs = True, []
-    for b in (b64, ks.pk0):
-        got = NK.negacyclic_mul(a64, b, ring)
-        want = NK.negacyclic_mul_plain(a64, b, ring)
+
+    def held(got, want):
+        nonlocal mul_eq
         torch.cuda.synchronize()
         mul_eq &= torch.equal(got, want)
         mul_errs.append(max_abs_err(got, want))
+    for b in (b64, ks.pk0):
+        held(NK.negacyclic_mul(a64, b, ring),
+             NK.negacyclic_mul_plain(a64, b, ring))
     u = sampling.ternary_poly(params, gen, (ENC_CHUNK_ROWS,))
-    got = NK.negacyclic_mul(ks.pk0, u, ring)
-    want = NK.negacyclic_mul_plain(ks.pk0, u, ring)
-    mul_eq &= torch.equal(got, want)
-    mul_errs.append(max_abs_err(got, want))
-    mul_ms = time_cuda(lambda: NK.negacyclic_mul(ks.pk0, u, ring), 5)
-    mul_plain_ms = time_cuda(
-        lambda: NK.negacyclic_mul_plain(ks.pk0, u, ring), 1)
+    held(NK.negacyclic_mul(ks.pk0, u, ring),
+         NK.negacyclic_mul_plain(ks.pk0, u, ring))
+    last_chunk = table.n_rows % ENC_CHUNK_ROWS or ENC_CHUNK_ROWS
+    shapes = (ENC_CHUNK_ROWS, last_chunk, 431, 256, 1)
+    for name in ("pk0", "pk1", "sk"):
+        br, pairs = ks.key_br(name)
+        for rows in shapes:
+            x = (u[:rows] if name != "sk"
+                 else sampling.uniform_poly(params, gen, (rows,)))
+            held(NK.negacyclic_mul_ntt(x, br, ring, pairs),
+                 NK.negacyclic_mul_ntt_plain(x, br, ring))
+    br, pairs = ks.key_br("pk0")
+    mul_ntt = {"ms": time_cuda(
+        lambda: NK.negacyclic_mul_ntt(u, br, ring, pairs), 10),
+        "plain_ms": time_cuda(
+            lambda: NK.negacyclic_mul_ntt_plain(u, br, ring), 1),
+        **mul_bound(ENC_CHUNK_ROWS, K, n, 1, rate, key_ntt=True)}
+    mul_var = {"ms": time_cuda(lambda: NK.negacyclic_mul(u, ks.pk0, ring),
+                               10),
+               "plain_ms": time_cuda(
+                   lambda: NK.negacyclic_mul_plain(u, ks.pk0, ring), 1),
+               **mul_bound(ENC_CHUNK_ROWS, K, n, 1, rate, key_ntt=False)}
     mul64_ms = time_cuda(lambda: NK.negacyclic_mul(a64, b64, ring), 20)
-    del got, want, u
+    del u
     require(mul_eq, f"multiply kernel != plain (max |err| {mul_errs})")
     torch.cuda.empty_cache()
 
@@ -316,9 +401,9 @@ def phase_kernels(ks, table, serve, rate) -> dict:
                  "cases": len(errs), "served_tiles": timed,
                  "per_lane_1024_ms": pl_ms},
         "mul": {"equal": mul_eq, "max_abs_err": max(mul_errs),
-                "shape": [ENC_CHUNK_ROWS, K, n], "ms": mul_ms,
-                "plain_ms": mul_plain_ms, "ms_64x64": mul64_ms,
-                **mul_bound(ENC_CHUNK_ROWS, K, n, 1, rate)},
+                "cases": len(mul_errs), "key_rows": list(shapes),
+                "shape": [ENC_CHUNK_ROWS, K, n], "key_ntt": mul_ntt,
+                "var": mul_var, "ms_64x64": mul64_ms},
     }
     emit(out)
     return out
@@ -799,10 +884,10 @@ def _device_summary(prof, wall_s: float, top: int = 6) -> dict:
     import torch
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: dict = {}
+    by_name: dict = {}                 # keyed as printed: 80 characters
     for e in dev:
-        c, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
+        c, us = by_name.get(e.name[:80], (0, 0.0))
+        by_name[e.name[:80]] = (c + 1, us + e.time_range.elapsed_us())
     busy_us, end = 0.0, None
     for e in sorted(dev, key=lambda e: e.time_range.start):
         lo, hi = e.time_range.start, e.time_range.end
@@ -816,7 +901,7 @@ def _device_summary(prof, wall_s: float, top: int = 6) -> dict:
     return {"events": len(dev),
             "busy_s": busy_us / 1e6 if dev else None,
             "busy_share": busy_us / 1e6 / wall_s if dev else None,
-            "ms_by_name": {name[:80]: {"count": c, "ms": us / 1e3}
+            "ms_by_name": {name: {"count": c, "ms": us / 1e3}
                            for name, (c, us) in ranked}}
 
 
@@ -968,8 +1053,10 @@ def main() -> int:
         row("eval_coeff0_gadget", "cmp_eval.cu",
             "src/repro/kernels/cmp_eval.py:48", serve, "eval_coeff0_gadget",
             ev["max_abs_err"], tile),
+        row("negacyclic_mul_ntt", "ntt.cu", "src/repro/kernels/ntt.py:81",
+            serve, "negacyclic_mul_ntt", mul["max_abs_err"], mul["key_ntt"]),
         row("negacyclic_mul", "ntt.cu", "src/repro/kernels/ntt.py:81",
-            serve, "negacyclic_mul", mul["max_abs_err"], mul),
+            serve, "negacyclic_mul", mul["max_abs_err"], mul["var"]),
         row("eval_coeff0_paper", "cmp_eval.cu",
             "src/repro/kernels/cmp_eval.py:35", write, "eval_coeff0_paper",
             paper["max_abs_err"], lanes),

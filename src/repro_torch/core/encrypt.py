@@ -4,8 +4,9 @@ Encoding as in `repro.core.encrypt`: operands live in the constant
 coefficient, payload = Δ_enc * m (BFV: m integer; CKKS: m real, payload =
 round(m * Δ_enc), round half to even in both frameworks).
 
-On CUDA tensors pk0⊛u, pk1⊛u and c1⊛sk run through the fused multiply
-kernel (`kernels/ntt.py`), with the key operand at batch stride 0.  A
+pk0⊛u, pk1⊛u and c1⊛sk run through `kernels.ntt.negacyclic_mul_ntt`
+against the key's transform, made once per key set (`KeySet.key_br`):
+the fused multiply kernel on CUDA tensors, two transforms per row.  A
 large batch is encrypted in row chunks, so the sampled u/e0/e1 of one
 chunk — not of the whole column — are alive at a time.
 """
@@ -56,11 +57,18 @@ def _as_operand(ks: KeySet, m, dtype=None) -> torch.Tensor:
     return m.to(device=ks.device, dtype=dtype or m.dtype)
 
 
+def _key_mul(ks: KeySet, x: torch.Tensor, name: str) -> torch.Tensor:
+    """x ⊛ key `name`, against the key's cached transform."""
+    from repro_torch.kernels import ntt as NK      # NK imports core.ring
+    br, pairs = ks.key_br(name)
+    return NK.negacyclic_mul_ntt(x, br, ks.ring, pairs)
+
+
 def _encrypt_rows(ks: KeySet, payload, u, e0, e1) -> Ciphertext:
     rng = ks.ring
     m_poly = R.const_poly(ks.params, payload)
-    c0 = R.add(rng, R.add(rng, R.negacyclic_mul(rng, ks.pk0, u), e0), m_poly)
-    c1 = R.add(rng, R.negacyclic_mul(rng, ks.pk1, u), e1)
+    c0 = R.add(rng, R.add(rng, _key_mul(ks, u, "pk0"), e0), m_poly)
+    c1 = R.add(rng, _key_mul(ks, u, "pk1"), e1)
     return Ciphertext(c0, c1)
 
 
@@ -132,7 +140,7 @@ def encrypt_fae(ks: KeySet, m, seed=0, *, pert=None, e_m=None, u=None,
 def decrypt_raw(ks: KeySet, ct: Ciphertext) -> torch.Tensor:
     """Centered phase of coefficient 0: Δ_enc*m + noise.  [...] int64."""
     rng = ks.ring
-    phase = R.add(rng, ct.c0, R.negacyclic_mul(rng, ct.c1, ks.sk))
+    phase = R.add(rng, ct.c0, _key_mul(ks, ct.c1, "sk"))
     return R.crt_centered(ks.params, phase[..., :, 0])
 
 

@@ -61,6 +61,31 @@ class KeySet:
                                                dim=-1).contiguous()
         return self._cache["cek_rev"]
 
+    @property
+    def cek_rev_bytes(self) -> torch.Tensor:
+        """Gadget mode: `cek_rev` cut into bytes in the layout of the
+        tensor-core Eval's B operand (`kernels.cmp_eval.gadget_cek_bytes`),
+        made once per key set."""
+        if "cek_rev_bytes" not in self._cache:
+            from repro_torch.kernels import cmp_eval as CK
+            self._cache["cek_rev_bytes"] = CK.gadget_cek_bytes(
+                self.cek_rev, self.params.profile.gadget_log_base)
+        return self._cache["cek_rev_bytes"]
+
+    def key_br(self, name: str):
+        """Key polynomial `name` ("pk0", "pk1" or "sk") in the NTT domain,
+        bit-reversed order (`ntt_br`, the kernel on a card), with its Shoup
+        pairs: the fixed operand of `kernels.ntt.negacyclic_mul_ntt`, made
+        once per key set.  Returns (br [K, n] int64, pairs [K, n, 2])."""
+        if name not in ("pk0", "pk1", "sk"):
+            raise ValueError(f"no key polynomial {name!r}")
+        if ("br", name) not in self._cache:
+            from repro_torch.kernels import ntt as NK
+            br = NK.ntt_br(getattr(self, name), self.ring)
+            self._cache[("br", name)] = (br, R.shoup_pairs(br,
+                                                           self.ring.q_arr))
+        return self._cache[("br", name)]
+
     @classmethod
     def from_numpy(cls, params: HadesParams, *, sk, pk0, pk1, cek=None,
                    cek_gadget=None, device=None) -> "KeySet":

@@ -48,6 +48,10 @@ class Ring:
     stage_w: torch.Tensor        # [K, S, n/2]
     stage_w_inv: torch.Tensor    # [K, S, n/2]
     bitrev: torch.Tensor         # [n]
+    # the kernels' 32-bit Shoup pairs {w, floor(w 2^32 / q)} as int32
+    # bits: [K, 4, n, 2] over psi_pow, psi_inv_pow and the forward and
+    # inverse stage twiddles, stage s's 2^s distinct ones at [2^s, 2^s+1)
+    shoup: torch.Tensor
 
     @property
     def num_towers(self) -> int:
@@ -75,6 +79,29 @@ def int64_tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.int64)).to(device)
 
 
+def shoup_pairs(w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Residues w (int64, [..., K, n], q broadcast over them) as the
+    kernels' Shoup pairs: [..., 2] int32 holding the uint32 bits of w and
+    of floor(w 2^32 / q)."""
+    pairs = torch.stack([w, (w << 32) // q], dim=-1)
+    return torch.where(pairs >= 1 << 31, pairs - (1 << 32),
+                       pairs).to(torch.int32)
+
+
+def _shoup_tables(t: NttTables, dev) -> torch.Tensor:
+    """[K, 4, n, 2]: psi_pow, psi_inv_pow, and the stage twiddles with
+    stage s's first 2^s entries at [2^s, 2^(s+1)) (all a stage reads)."""
+    K, n = t.psi_pow.shape
+    tabs = np.zeros((K, 4, n), np.int64)
+    tabs[:, 0], tabs[:, 1] = t.psi_pow, t.psi_inv_pow
+    for s in range(n.bit_length() - 1):
+        h = 1 << s
+        tabs[:, 2, h:2 * h] = t.stage_w[:, s, :h]
+        tabs[:, 3, h:2 * h] = t.stage_w_inv[:, s, :h]
+    q = int64_tensor(np.asarray(t.qs)[:, None, None], dev)
+    return shoup_pairs(int64_tensor(tabs, dev), q)
+
+
 def make_ring(params: HadesParams, device="cpu") -> Ring:
     t: NttTables = params.ntt_tables()
     dev = torch.device(device)
@@ -87,6 +114,7 @@ def make_ring(params: HadesParams, device="cpu") -> Ring:
         stage_w=int64_tensor(t.stage_w, dev),
         stage_w_inv=int64_tensor(t.stage_w_inv, dev),
         bitrev=int64_tensor(t.bitrev, dev),
+        shoup=_shoup_tables(t, dev),
     )
 
 
@@ -163,30 +191,22 @@ def naive_negacyclic_mul(ring: Ring, a: torch.Tensor,
 # CRT decode (centered representative of a coefficient mod Q)
 # ---------------------------------------------------------------------------
 
-def _mulmod(a: torch.Tensor, b_int: int, m_int: int) -> torch.Tensor:
-    """(a * b) mod m with m up to 2^62, via double-and-add. a: any shape."""
-    acc = torch.zeros_like(a)
-    cur = a % m_int
-    b = b_int % m_int
-    while b:
-        if b & 1:
-            acc = (acc + cur) % m_int
-        cur = (cur * 2) % m_int
-        b >>= 1
-    return acc
-
-
 def crt_centered(params: HadesParams, residues: torch.Tensor) -> torch.Tensor:
     """Reconstruct the centered value in (-Q/2, Q/2] from residues [..., K].
 
-    Exact for Q < 2^62 (int64 double-and-add; no partial sum exceeds
-    2^63)."""
-    Q = params.Q
-    acc = torch.zeros(residues.shape[:-1], dtype=torch.int64,
-                      device=residues.device)
-    for k, alpha in enumerate(params.crt_alphas()):
-        acc = (acc + _mulmod(residues[..., k], alpha, Q)) % Q
-    return torch.where(acc > Q // 2, acc - Q, acc)
+    Garner's mixed-radix form: x = r_0, then for each further tower
+    v_k = (r_k - x) * (q_0...q_{k-1})^-1 mod q_k and x += q_0...q_{k-1} v_k.
+    Exact in int64 for Q < 2^62: x stays below q_0...q_k, and each product
+    is of two numbers below 2^31 or below Q."""
+    qs = params.qs
+    x = residues[..., 0] % qs[0]
+    M = qs[0]
+    for k in range(1, len(qs)):
+        q = qs[k]
+        v = ((residues[..., k] - x % q) % q) * pow(M % q, q - 2, q) % q
+        x = x + M * v
+        M *= q
+    return torch.where(x > M // 2, x - M, x)
 
 
 def to_rns(params: HadesParams, coeffs: np.ndarray) -> np.ndarray:

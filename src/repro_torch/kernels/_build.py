@@ -40,9 +40,11 @@ ENTRIES: Dict[str, Dict[str, list]] = {
                              _P, _L, _I, _I, _P],
     },
     "ntt": {
-        "hades_negacyclic_mul": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _P,
-                                 _I, _I, _P],
-        "hades_ntt_br": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _P],
+        "hades_negacyclic_mul": [_P, _L, _P, _L, _P, _L, _P, _P, _I, _I,
+                                 _P],
+        "hades_negacyclic_mul_ntt": [_P, _L, _P, _P, _L, _P, _P, _I, _I,
+                                     _P],
+        "hades_ntt_br": [_P, _P, _L, _P, _P, _I, _I, _I, _P],
     },
 }
 SOURCES = tuple(ENTRIES)
@@ -53,8 +55,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # kernel name -> launches since the last reset; each wrapper adds one
 # exactly where it launches its kernel (the two ntt_br directions apart)
 LAUNCHES: Dict[str, int] = {"eval_coeff0_gadget": 0, "eval_coeff0_paper": 0,
-                            "negacyclic_mul": 0, "ntt_br_fwd": 0,
-                            "ntt_br_inv": 0}
+                            "negacyclic_mul": 0, "negacyclic_mul_ntt": 0,
+                            "ntt_br_fwd": 0, "ntt_br_inv": 0}
 
 
 def count_launch(name: str) -> None:

@@ -16,10 +16,13 @@ PyTorch.
 
 On CUDA tensors the wrapper launches `csrc/cmp_eval.cu` once per unique
 column of the tile (once on the served path, which scans one column),
-addressing the tile by offset into the column — no tile copy.  On CPU
-tensors it runs `eval_coeff0_gadget_plain`, the same arithmetic in
-PyTorch, in row chunks.  The reference kernel this replaces is
-`repro/kernels/cmp_eval.py::_eval_gadget_kernel`.
+addressing the tile by offset into the column — no tile copy.  The
+kernel runs the dot product on tensor cores in a byte-split form (see
+"gadget mode on tensor cores" below): `eval_coeff0_gadget_bytes_plain`
+is that arithmetic step by step in PyTorch, for the tests.  On CPU
+tensors the wrapper runs `eval_coeff0_gadget_plain`, the function's
+definition in PyTorch, in row chunks.  The reference kernel this
+replaces is `repro/kernels/cmp_eval.py::_eval_gadget_kernel`.
 
 Paper mode (`eval_coeff0_paper`) over lanes: the per-tower residues
 [B, K] of coefficient 0 of scale · d0 + d1 ⊛ cek with d = a - b (lane
@@ -100,31 +103,176 @@ def eval_coeff0_gadget_plain(uniq_c0, uniq_c1, row_offset, rows, sel,
     return out
 
 
+# ---------------------------------------------------------------------------
+# gadget mode on tensor cores: the byte-split form
+# ---------------------------------------------------------------------------
+#
+# The key multiply's coefficient 0 is a matrix product.  Its reduction runs
+# over (source tower, coefficient, digit); the kernel packs a coefficient's
+# digits into bytes, 4 to a 32-bit word (WPC words per coefficient, the
+# digits padded with zeros), and splits every cek_rev residue (< 2^31) into
+# its 4 bytes, so that
+#
+#   Σ_{ks,i,j} dig_j(d_ks[i]) cek_rev[ks, j, k, i]
+#       = Σ_b 2^(8b) Σ_{ks,i,j} dig_j(d_ks[i]) byte_b(cek_rev[ks, j, k, i])
+#
+# is a u8 x u8 product with 8 output columns (k, b), k < K <= 2, summed in
+# s32 on tensor cores.  One term is below 2^16, so a run of s32 sums is
+# flushed (reduced mod q_k into a wider sum) every FLUSH_WORDS words =
+# 4 * FLUSH_WORDS terms, well inside the 33,025 terms after which s32 could
+# overflow.  The epilogue recombines the byte columns mod q_k.
+
+FLUSH_WORDS = 4096          # 16,384 terms per s32 run
+_GROUP_WORDS = 32           # words per group: 4 mma steps of k = 32 bytes
+
+
+def words_per_coeff(D: int, log_base: int) -> int:
+    """Words of 4 digit bytes per coefficient: 1 when the digits are the
+    residue's own bytes (log_base 8, at most 4 of them), else ceil(D / 4)
+    rounded up to a power of two, at least 2 (a thread's 8 words of a
+    group are then whole coefficients)."""
+    if log_base == 8 and D <= 4:
+        return 1
+    return max(2, 1 << (-(-D // 4) - 1).bit_length())
+
+
+def _fragment_words(wpc: int, device) -> torch.Tensor:
+    """[4 steps, 4 tig, 2 slots]: the group word (of 32) that fragment slot
+    s of mma step t holds in threadID_in_group tig.  A thread's 8 words
+    are its coefficients c_j = 8 (j >> 1) + 2 tig + (j & 1), j < 8 / wpc
+    (so the 4 threads of a group read 64 contiguous bytes per load), each
+    in wpc words; step t takes its words 2t and 2t + 1."""
+    t = torch.arange(4, device=device)[:, None, None]
+    tig = torch.arange(4, device=device)[None, :, None]
+    e = 2 * t + torch.arange(2, device=device)[None, None, :]
+    j = e // wpc
+    return (8 * (j >> 1) + 2 * tig + (j & 1)) * wpc + e % wpc
+
+
+def gadget_cek_bytes(cek_rev: torch.Tensor, log_base: int) -> torch.Tensor:
+    """cek_rev [K_src, D, K, n] as the tensor-core Eval's B operand.
+
+    The columns are (k, b) = k*4 + b (8 of them; zero where k >= K), the
+    rows the words (ks, i, w) of the reduction, each a uint32 holding the
+    bytes b of cek_rev[ks, 4w + j, k, i] for j = 0..3 (zero for 4w + j >=
+    D).  They are stored in the order the kernel's mma.m16n8k32 B fragments
+    read them: [K_src, groups, step t, lane, slot] int32, lane g*4 + tig
+    holding column g (PTX's groupID g and threadID_in_group tig) of group
+    word `_fragment_words(wpc)[t, tig, slot]`; a group is 32 consecutive
+    words."""
+    if not 1 <= log_base <= 8:
+        raise ValueError(f"the tensor-core Eval needs digits of at most 8 "
+                         f"bits, not {log_base}")
+    Ks, D, K, n = cek_rev.shape
+    if K > 2:
+        raise ValueError(f"the Eval takes 1 or 2 towers, not {K}")
+    wpc = words_per_coeff(D, log_base)
+    dev = cek_rev.device
+    shifts = torch.arange(4, device=dev) * 8
+    byt = (cek_rev.permute(0, 3, 1, 2)[..., None] >> shifts) & 255
+    cols = torch.zeros((Ks, n, 4 * wpc, 8), dtype=torch.int64, device=dev)
+    cols[:, :, :D, :4 * K] = byt.reshape(Ks, n, D, 4 * K)
+    words = (cols.reshape(Ks, n * wpc, 4, 8) << shifts[:, None]).sum(2)
+    frag = words.reshape(Ks, -1, 32, 8)[:, :, _fragment_words(wpc, dev)]
+    frag = frag.permute(0, 1, 2, 5, 3, 4).reshape(Ks, -1, 4, 32, 2)
+    return torch.where(frag >= 1 << 31, frag - (1 << 32),
+                       frag).to(torch.int32).contiguous()
+
+
+def _cek_byte_columns(cek_bytes: torch.Tensor, wpc: int) -> torch.Tensor:
+    """`gadget_cek_bytes`'s fragment order back to [K_src, n * WPC * 4, 8]
+    digit bytes: row (i, w, j) = byte b of digit 4w + j of coefficient i."""
+    Ks, G = cek_bytes.shape[:2]
+    frag = (cek_bytes.to(torch.int64) & 0xFFFFFFFF).reshape(
+        Ks, G, 4, 8, 4, 2).permute(0, 1, 2, 4, 5, 3)   # [Ks, G, t, tig, s, g]
+    words = torch.empty((Ks, G, 32, 8), dtype=torch.int64,
+                        device=cek_bytes.device)
+    words[:, :, _fragment_words(wpc, cek_bytes.device)] = frag
+    shifts = torch.arange(4, device=words.device) * 8
+    return ((words.reshape(Ks, -1, 1, 8) >> shifts[:, None]) & 255).reshape(
+        Ks, -1, 8)
+
+
+def eval_coeff0_gadget_bytes_plain(uniq_c0, uniq_c1, row_offset, rows, sel,
+                                   bounds_c0, bounds_c1, cek_rev, qs, scale,
+                                   log_base, cek_bytes=None) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic in PyTorch, step by step: packed
+    digit bytes of d1 against `gadget_cek_bytes` (given, or made from
+    cek_rev), summed in runs of FLUSH_WORDS words that must each fit an
+    s32 (raises otherwise), each run reduced mod q_k, the byte columns
+    recombined, scale·d0 added.  Equals `eval_coeff0_gadget_plain`."""
+    A, K, n = _check(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
+                     bounds_c1, cek_rev, qs)
+    D = cek_rev.shape[1]
+    wpc = words_per_coeff(D, log_base)
+    if cek_bytes is None:
+        cek_bytes = gadget_cek_bytes(cek_rev, log_base)
+    dev = uniq_c1.device
+    selt = torch.as_tensor(np.asarray(sel, np.int64), device=dev)
+    lo, hi = row_offset, row_offset + rows
+    b0, b1 = ((bounds_c0, bounds_c1) if bounds_c1.dim() == 4
+              else (bounds_c0[:, None], bounds_c1[:, None]))
+    d1 = (uniq_c1[selt, lo:hi] - b1) % qs[:, None]           # [A, R, K, n]
+    shifts = torch.arange(D, device=dev) * log_base
+    digits = torch.zeros(d1.shape + (4 * wpc,), dtype=torch.int64,
+                         device=dev)
+    digits[..., :D] = (d1[..., None] >> shifts) & ((1 << log_base) - 1)
+    a_mat = digits.reshape(A * rows, K, -1)                # [L, Ks, n*4WPC]
+    b_mat = _cek_byte_columns(cek_bytes, wpc)              # [Ks, n*4WPC, 8]
+    col_q = qs[torch.arange(8, device=dev) // 4 % K]       # q of column k*4+b
+    acc = torch.zeros((A * rows, 8), dtype=torch.int64, device=dev)
+    run = 4 * FLUSH_WORDS
+    for ks in range(K):
+        for t0 in range(0, a_mat.shape[-1], run):
+            part = a_mat[:, ks, t0:t0 + run] @ b_mat[ks, t0:t0 + run]
+            if part.numel() and int(part.max()) >= 1 << 31:
+                raise OverflowError("an s32 run of the Eval overflowed")
+            acc = (acc + part % col_q) % col_q
+    keyed = torch.zeros((A * rows, K), dtype=torch.int64, device=dev)
+    for b in reversed(range(4)):
+        keyed = (keyed * 256 + acc[:, b::4][:, :K]) % qs
+    d0 = (uniq_c0[selt, lo:hi, :, 0] - b0[..., 0]) % qs        # [A, R, K]
+    return ((d0 * scale) % qs + keyed.reshape(A, rows, K)) % qs
+
+
 def eval_coeff0_gadget(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
-                       bounds_c1, cek_rev, qs, scale,
-                       log_base) -> torch.Tensor:
+                       bounds_c1, cek_rev, qs, scale, log_base,
+                       cek_bytes=None) -> torch.Tensor:
     """[A, rows, K] coeff-0 residues of the gadget Eval over a row tile.
 
     uniq_c0/uniq_c1: [U, W, K, n] unique column stack; sel: host
     sequence of A indices into U; bounds: [A, K, n] or [A, rows, K, n];
     cek_rev: [K, D, K, n]; qs: [K].  The CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors.  The kernel reads cek_rev as
+    `gadget_cek_bytes`: pass `cek_bytes` (`KeySet.cek_rev_bytes`, made once
+    per key set), or it is made here from cek_rev."""
     A, K, n = _check(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
                      bounds_c1, cek_rev, qs)
     if not uniq_c1.is_cuda:
         return eval_coeff0_gadget_plain(uniq_c0, uniq_c1, row_offset, rows,
                                         sel, bounds_c0, bounds_c1, cek_rev,
                                         qs, scale, log_base)
-    if K not in (1, 2):
-        raise ValueError(f"the Eval kernel takes 1 or 2 towers, not {K}")
+    D = cek_rev.shape[1]
+    wpc = words_per_coeff(D, log_base)
+    if wpc > 2:
+        raise ValueError(f"the Eval kernel takes at most 8 digits per "
+                         f"tower, not {D}")
+    if cek_bytes is None:
+        cek_bytes = gadget_cek_bytes(cek_rev, log_base)
+    if cek_bytes.dtype != torch.int32 or cek_bytes.device != uniq_c1.device \
+            or cek_bytes.numel() != K * n * wpc * 8:
+        raise ValueError("cek_bytes is not gadget_cek_bytes(cek_rev)")
     for t in (uniq_c0, uniq_c1):
         if t.stride()[1:] != (K * n, n, 1):
             raise ValueError("each unique column must be row-major "
                              "contiguous [W, K, n]")
-    D = cek_rev.shape[1]
     dev = uniq_c1.device
-    cek_rev, qs = cek_rev.contiguous(), qs.contiguous()
+    cek_bytes, qs = cek_bytes.contiguous(), qs.contiguous()
     bounds_c0, bounds_c1 = bounds_c0.contiguous(), bounds_c1.contiguous()
+    if uniq_c1.data_ptr() % 16 or bounds_c1.data_ptr() % 16:
+        raise ValueError("uniq_c1 and bounds_c1 must start on a 16-byte "
+                         "boundary (the kernel reads them 16 bytes at a "
+                         "time)")
     per_lane = bounds_c1.dim() == 4
     out = torch.empty((A, rows, K), dtype=torch.int64, device=dev)
     if A == 0 or rows == 0:
@@ -147,7 +295,7 @@ def eval_coeff0_gadget(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
         c1 = uniq_c1[u, row_offset:row_offset + rows]
         rc = lib.hades_eval_gadget(
             c0.data_ptr(), c1.data_ptr(), b0.data_ptr(), b1.data_ptr(),
-            b_astride, b_rstride, cek_rev.data_ptr(), qs.data_ptr(),
+            b_astride, b_rstride, cek_bytes.data_ptr(), qs.data_ptr(),
             int(scale), dst.data_ptr(), len(atoms), rows, K, n, D,
             int(log_base), stream)
         _build.check(rc, "eval_coeff0_gadget")

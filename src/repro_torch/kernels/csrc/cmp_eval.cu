@@ -11,144 +11,351 @@
 // with d0 = col.c0 - bound.c0, d1 = col.c1 - bound.c1 (mod q) and digits of
 // gadget_log_base bits.  The TPU kernel gets there with NTTs; this one
 // uses coeff0(x ⊛ c) = <x, rev(c)>, rev(c)[0] = c[0], rev(c)[i] = -c[n-i]
-// mod q, against the reversed coefficient-domain gadget CEK (`cek_rev`,
-// precomputed once per key set).  Digits are < 2^8 and rev(c) < 2^31, so
-// the E*n-term sum stays below 2^54 and one reduction per lane suffices:
-// the result is byte-identical to the reference's NTT form.
+// mod q, against the reversed coefficient-domain gadget CEK (`cek_rev`),
+// and runs that dot product on the tensor cores as an integer matrix
+// product (kernels/cmp_eval.py, "the byte-split form"):
 //
-// Bound on this card: integer issue.  Each lane needs K*E*n = 65.5k
-// 32x32->64-bit multiply-adds at paper-bfv, which run on the SM's 64
-// INT32 lanes, half the FP32 lanes; at the served shapes that takes
-// longer than reading each row's 64 KB of c1 once from HBM.  Besides,
-// every c1 element meets D*K = 8 int64 cek_rev words read through L2
-// (512 KB per row in all).  Design: one block per
-// (row, chunk of up to 8 atoms).  The row's c1 is read from device memory
-// once per chunk and reused by every atom of the chunk; digits are cut in
-// registers, so the reference's [B, E, K, n] broadcast digit tensor never
-// exists; cek_rev (512 KB) and the atom bounds are read through L2; the
-// lane sums meet in warp shuffles and one shared-memory pass.  The row
-// tile is addressed by pointer offset into the table's column, so no tile
-// copy is made.
+//   A [lanes x words]  the digits of d1, 4 bytes to a 32-bit word: at
+//                      log_b = 8 the residue d1 itself is its word;
+//   B [words x 8]      cek_rev split into bytes, column (k, b) = byte b of
+//                      the residue meeting tower k (KeySet.cek_rev_bytes,
+//                      made once per key set, in fragment order);
+//   C [lanes x 8]      s32 sums, flushed every 4,096 words (16,384 terms
+//                      of at most 255 x 255) into 32-bit sums mod q_k, and
+//                      recombined at the end: Σ_b C[., (k, b)] 2^(8b) mod q_k.
+//
+// with mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32.  The result is
+// byte-identical to the reference's NTT form.
+//
+// Bound on this card: bytes.  The product is lanes x 32,768 x 8 u8 MACs
+// per lane at paper-bfv (0.04 ms over 8 x 16,384 lanes at the 1,979 TOPS
+// dense INT8 rate); reading the tile's c1 once (64 KB a row) takes longer.
+// What it costs besides is forming the digits: one modular difference per
+// (lane, coefficient).  Design: a block is 16 rows (one m16 tile) x a
+// chunk of up to 8 atoms, run by 4 warps that each sum every 4th group of
+// 32 words and meet in shared memory at the end.  A thread loads its 8 c1
+// coefficients of a group once (the 4 threads of an mma group read 64
+// contiguous bytes), one group ahead of use, and forms every atom's
+// differences and words from them in registers; the B fragments of a
+// group are read once from shared memory and reused for every atom.  B
+// (8 KB a chunk of 8 groups) and, with one bound per atom, the atoms'
+// bounds for the chunk are staged through shared memory by cp.async,
+// double-buffered: without that the bounds' reads through L1 took half
+// the time.  B's L2 traffic is 256 KB per 16 rows.  The row tile is
+// addressed by pointer offset into the table's column (no tile copy).
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
 
+using hades::addmod;
 using hades::barrett_m;
 using hades::mulmod;
+using hades::recombine_bytes;
 using hades::reduce;
 using hades::submod;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;         // the paper kernel's block
 
-template <int K, int ACH>
-__global__ void eval_gadget_kernel(
+constexpr int kEvalWarps = 4;
+// warps sharing one m16 tile, each summing every kSplit-th group: of 1, 2
+// and 4, the fastest over the served tiles and the per-lane layout on the
+// H100 (PERF.md)
+constexpr int kSplit = 4;
+constexpr int kEvalRows = 16 * kEvalWarps / kSplit;   // rows per block
+constexpr int kGroupU32 = 256;        // one group of B: 4 steps x 32 lanes x 2
+constexpr int kChunkGroups = 8;       // groups per staged chunk (8 KB)
+constexpr int kFlushGroups = 128;     // 4,096 words = 16,384 terms per s32 run
+static_assert(kEvalWarps % kSplit == 0 && kChunkGroups % kSplit == 0,
+              "a tile's warps split each chunk's groups evenly");
+static_assert((kEvalWarps - kEvalWarps / kSplit) * 8 * 4 * 32 <=
+                  2 * kChunkGroups * kGroupU32,
+              "the warps of a tile meet in the B buffers");
+
+__device__ __forceinline__ void mma_u8(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The thread's CPT coefficients of a group, c_j = 8 (j >> 1) + 2 tig +
+// (j & 1) from p (at 2 tig, 16-byte aligned), as uint32: the 4 threads of
+// an mma group read 64 contiguous bytes per load.  Device or shared memory.
+template <int CPT>
+__device__ __forceinline__ void load_coeffs(uint32_t (&x)[CPT],
+                                            const int64_t* p) {
+#pragma unroll
+  for (int i = 0; i < CPT / 2; ++i) {
+    const longlong2 t = *reinterpret_cast<const longlong2*>(p + 8 * i);
+    x[2 * i] = (uint32_t)t.x;
+    x[2 * i + 1] = (uint32_t)t.y;
+  }
+}
+
+// Word w of a coefficient: its digits 4w .. 4w+3, one byte each.  WPC = 1
+// only at log_b = 8 with at most 4 digits: the residue d is its own word.
+template <int WPC>
+__device__ __forceinline__ uint32_t word_of(uint32_t d, int w, int log_b,
+                                            int D, uint32_t mask) {
+  if (WPC == 1) return d;
+  uint32_t r = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int t = 4 * w + j;
+    if (t < D) r |= ((d >> (t * log_b)) & mask) << (8 * j);
+  }
+  return r;
+}
+
+template <int K, int ACH, int WPC>
+__global__ void __launch_bounds__(32 * kEvalWarps) eval_gadget_kernel(
     const int64_t* __restrict__ c0, const int64_t* __restrict__ c1,
     const int64_t* __restrict__ bc0, const int64_t* __restrict__ bc1,
     int64_t b_astride, int64_t b_rstride,
-    const int64_t* __restrict__ cek_rev, const int64_t* __restrict__ qs,
+    const uint32_t* __restrict__ cekb, const int64_t* __restrict__ qs,
     int64_t scale, int64_t* __restrict__ out, int A, int rows, int n, int D,
     int log_b) {
-  const int r = blockIdx.x;
+  constexpr int CPT = 8 / WPC;        // coefficients per thread and group
+  constexpr int CPG = 32 / WPC;       // coefficients per group
+  constexpr int CC = kChunkGroups * CPG;   // coefficients per chunk
+  // B chunks, then (per-atom bounds) each atom's chunk of int64 bounds
+  extern __shared__ __align__(16) uint32_t smem[];
+  auto bsm = [&](int buf) { return smem + buf * kChunkGroups * kGroupU32; };
+  int64_t* bnd = reinterpret_cast<int64_t*>(smem + 2 * kChunkGroups *
+                                            kGroupU32);
+  const bool per_lane = b_rstride != 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int part = warp % kSplit;     // this warp's share of the groups
   const int a0 = blockIdx.y * ACH;
   const int na = A - a0 < ACH ? A - a0 : ACH;
+  const int rw = blockIdx.x * kEvalRows + (warp / kSplit) * 16;
+  const int r_lo = min(rw + g, rows - 1), r_hi = min(rw + g + 8, rows - 1);
   const int64_t kn = (int64_t)K * n;
-  const int64_t* crow = c1 + (int64_t)r * kn;
-  const int64_t* brow[ACH];
-#pragma unroll
-  for (int a = 0; a < ACH; ++a) {
-    const int aa = a0 + (a < na ? a : na - 1);
-    brow[a] = bc1 + aa * b_astride + (int64_t)r * b_rstride;
-  }
   const uint32_t mask = (1u << log_b) - 1u;
+  // the thread's C columns are (k, b) = (tig / 2, 2 (tig % 2) + {0, 1})
+  const int kc = (tig >> 1) < K ? (tig >> 1) : K - 1;
+  const uint32_t qc = (uint32_t)qs[kc];
+  const uint64_t mc = barrett_m(qc);
+  uint32_t qsrc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) qsrc[k] = (uint32_t)qs[k];
 
-  uint64_t acc[ACH][K];
+  int acc[ACH][4];
+  uint32_t red[ACH][4];
 #pragma unroll
   for (int a = 0; a < ACH; ++a)
 #pragma unroll
-    for (int k = 0; k < K; ++k) acc[a][k] = 0;
+    for (int c = 0; c < 4; ++c) acc[a][c] = 0, red[a][c] = 0;
+  auto flush = [&]() {
+#pragma unroll
+    for (int a = 0; a < ACH; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        red[a][c] = reduce((uint64_t)red[a][c] + (uint32_t)acc[a][c], qc, mc);
+        acc[a][c] = 0;
+      }
+  };
 
-#pragma unroll
-  for (int ks = 0; ks < K; ++ks) {
-    const uint32_t q = (uint32_t)qs[ks];
-    const int64_t* cek_ks = cek_rev + (int64_t)ks * D * kn;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint32_t x = (uint32_t)crow[ks * n + i];
-      uint32_t d[ACH];
-#pragma unroll
-      for (int a = 0; a < ACH; ++a)
-        d[a] = a < na ? submod(x, (uint32_t)brow[a][ks * n + i], q) : 0u;
-      for (int j = 0; j < D; ++j) {
-        uint32_t ck[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          ck[k] = (uint32_t)cek_ks[((int64_t)j * K + k) * n + i];
-        const int sh = j * log_b;
-#pragma unroll
-        for (int a = 0; a < ACH; ++a) {
-          const uint32_t dig = (d[a] >> sh) & mask;
-#pragma unroll
-          for (int k = 0; k < K; ++k) acc[a][k] += (uint64_t)dig * ck[k];
-        }
+  // group G covers coefficients [G CPG, (G + 1) CPG) of the [K n] row
+  const int ngroups = K * n / CPG;
+  const int nchunks = (ngroups + kChunkGroups - 1) / kChunkGroups;
+  auto stage = [&](int buf, int ch) {
+    const int g0 = ch * kChunkGroups;
+    const int ng = min(kChunkGroups, ngroups - g0);
+    const uint4* src = reinterpret_cast<const uint4*>(cekb) +
+                       (int64_t)g0 * (kGroupU32 / 4);
+    uint4* dst = reinterpret_cast<uint4*>(bsm(buf));
+    for (int i = threadIdx.x; i < ng * (kGroupU32 / 4); i += blockDim.x)
+      cp_async16(dst + i, src + i);
+    if (!per_lane) {
+      const int pairs = ng * CPG / 2;
+      for (int i = threadIdx.x; i < na * pairs; i += blockDim.x) {
+        const int a = i / pairs, c = 2 * (i - a * pairs);
+        cp_async16(bnd + (buf * ACH + a) * CC + c,
+                   bc1 + (a0 + a) * b_astride + (int64_t)g0 * CPG + c);
       }
     }
+    cp_async_commit();
+  };
+
+  // c1 of the next group is loaded while this one computes
+  uint32_t xl[CPT], xh[CPT];
+  if (part < ngroups) {
+    load_coeffs(xl, c1 + r_lo * kn + part * CPG + 2 * tig);
+    load_coeffs(xh, c1 + r_hi * kn + part * CPG + 2 * tig);
   }
-
-  __shared__ uint64_t red[kThreads / 32][ACH * K];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int a = 0; a < ACH; ++a)
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      uint64_t v = acc[a][k];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) red[warp][a * K + k] = v;
+  stage(0, 0);
+  int since_flush = 0;
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) {
+      stage((ch + 1) & 1, ch + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-  __syncthreads();
+    __syncthreads();
+    const uint32_t* bchunk = bsm(ch & 1);
+    const int64_t* bchunk_bnd = bnd + (ch & 1) * ACH * CC;
+    const int ng = min(kChunkGroups, ngroups - ch * kChunkGroups);
+    for (int gg = part; gg < ng; gg += kSplit) {
+      const int G = ch * kChunkGroups + gg;
+      const uint32_t q = K == 1 ? qsrc[0] : qsrc[G * CPG >= n ? 1 : 0];
+      const int64_t coef = (int64_t)G * CPG + 2 * tig;
+      uint32_t nxl[CPT], nxh[CPT];
+      if (G + kSplit < ngroups) {
+        load_coeffs(nxl, c1 + r_lo * kn + coef + kSplit * CPG);
+        load_coeffs(nxh, c1 + r_hi * kn + coef + kSplit * CPG);
+      }
+      uint2 bf[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        bf[t] = *reinterpret_cast<const uint2*>(bchunk + gg * kGroupU32 +
+                                                t * 64 + lane * 2);
+#pragma unroll
+      for (int a = 0; a < ACH; ++a) {
+        if (a >= na) break;
+        uint32_t yl[CPT], yh[CPT];
+        if (per_lane) {
+          const int64_t* bp = bc1 + (a0 + a) * b_astride + coef;
+          load_coeffs(yl, bp + r_lo * b_rstride);
+          load_coeffs(yh, bp + r_hi * b_rstride);
+        } else {
+          load_coeffs(yl, bchunk_bnd + a * CC + gg * CPG + 2 * tig);
+#pragma unroll
+          for (int i = 0; i < CPT; ++i) yh[i] = yl[i];
+        }
+        uint32_t wl[8], wh[8];
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) {
+          const uint32_t dl = submod(xl[i], yl[i], q);
+          const uint32_t dh = submod(xh[i], yh[i], q);
+#pragma unroll
+          for (int w = 0; w < WPC; ++w) {
+            wl[i * WPC + w] = word_of<WPC>(dl, w, log_b, D, mask);
+            wh[i * WPC + w] = word_of<WPC>(dh, w, log_b, D, mask);
+          }
+        }
+        // step t: this thread's words 2t and 2t+1 are the step's words
+        // tig and 4 + tig (rows g and g + 8), as the B fragments are
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          mma_u8(acc[a], wl[2 * t], wh[2 * t], wl[2 * t + 1], wh[2 * t + 1],
+                 bf[t].x, bf[t].y);
+      }
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) xl[i] = nxl[i], xh[i] = nxh[i];
+      if (++since_flush == kFlushGroups) {
+        flush();
+        since_flush = 0;
+      }
+    }
+    __syncthreads();
+  }
+  flush();
 
-  for (int o = threadIdx.x; o < na * K; o += blockDim.x) {
-    const int a = o / K;
-    const int k = o % K;
-    uint64_t s = 0;
-    for (int w = 0; w < (int)((blockDim.x + 31) >> 5); ++w)
-      s += red[w][a * K + k];
-    const uint64_t q = (uint64_t)qs[k];
-    const uint32_t col0 = (uint32_t)c0[(int64_t)r * kn + (int64_t)k * n];
-    const uint32_t bnd0 =
-        (uint32_t)bc0[(a0 + a) * b_astride + (int64_t)r * b_rstride +
-                      (int64_t)k * n];
-    const uint64_t d0 = submod(col0, bnd0, (uint32_t)q);
-    const uint64_t scaled = d0 * ((uint64_t)scale % q) % q;
-    out[((int64_t)(a0 + a) * rows + r) * K + k] =
-        (int64_t)((scaled + s % q) % q);
+  // the kSplit warps of a tile meet in shared memory (the B buffers are
+  // free now): part 0 adds the others' sums mod q
+  uint32_t* meet = smem;
+  const int tile = warp / kSplit;
+  if (part != 0) {
+#pragma unroll
+    for (int a = 0; a < ACH; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        meet[(((tile * (kSplit - 1) + part - 1) * ACH + a) * 4 + c) * 32 +
+             lane] = red[a][c];
+  }
+  __syncthreads();
+  if (part != 0) return;
+  for (int p = 1; p < kSplit; ++p)
+#pragma unroll
+    for (int a = 0; a < ACH; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        red[a][c] = addmod(
+            red[a][c],
+            meet[(((tile * (kSplit - 1) + p - 1) * ACH + a) * 4 + c) * 32 +
+                 lane],
+            qc);
+
+  // column (k, b) pairs: tig even holds b = 0, 1 of tower tig / 2, its odd
+  // neighbour b = 2, 3; C rows g (red[.][0..1]) and g + 8 (red[.][2..3])
+#pragma unroll
+  for (int a = 0; a < ACH; ++a) {
+    uint32_t nb[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      nb[c] = __shfl_down_sync(0xffffffffu, red[a][c], 1);
+    if (a >= na || (tig & 1) || (tig >> 1) >= K) continue;
+    const int k = tig >> 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw + g + 8 * h;
+      if (r >= rows) continue;
+      const uint64_t cols[4] = {red[a][2 * h], red[a][2 * h + 1], nb[2 * h],
+                                nb[2 * h + 1]};
+      const uint32_t keyed = recombine_bytes(cols, qc, mc);
+      const int64_t bo = (a0 + a) * b_astride + r * b_rstride + (int64_t)k * n;
+      const uint32_t d0 =
+          submod((uint32_t)c0[r * kn + (int64_t)k * n], (uint32_t)bc0[bo], qc);
+      const uint32_t scaled =
+          mulmod(d0, (uint32_t)((uint64_t)scale % qc), qc, mc);
+      out[((int64_t)(a0 + a) * rows + r) * K + k] =
+          (int64_t)addmod(scaled, keyed, qc);
+    }
   }
 }
 
-template <int K, int ACH>
+template <int K, int ACH, int WPC>
 static int launch(const void* c0, const void* c1, const void* bc0,
                   const void* bc1, long long b_astride, long long b_rstride,
-                  const void* cek_rev, const void* qs, long long scale,
+                  const void* cekb, const void* qs, long long scale,
                   void* out, int A, int rows, int n, int D, int log_b,
                   cudaStream_t stream) {
-  dim3 grid((unsigned)rows, (unsigned)((A + ACH - 1) / ACH));
-  eval_gadget_kernel<K, ACH><<<grid, kThreads, 0, stream>>>(
-      (const int64_t*)c0, (const int64_t*)c1, (const int64_t*)bc0,
-      (const int64_t*)bc1, b_astride, b_rstride, (const int64_t*)cek_rev,
-      (const int64_t*)qs, scale, (int64_t*)out, A, rows, n, D, log_b);
+  dim3 grid((unsigned)((rows + kEvalRows - 1) / kEvalRows),
+            (unsigned)((A + ACH - 1) / ACH));
+  // two B chunks (16 KB) and, with per-atom bounds, two of ACH atoms'
+  // bounds (at most 32 KB): within the 48 KB a block gets unasked
+  const size_t smem = 2 * kChunkGroups * kGroupU32 * sizeof(uint32_t) +
+                      (b_rstride == 0 ? 2 * ACH * kChunkGroups * (32 / WPC) *
+                                            sizeof(int64_t)
+                                      : 0);
+  eval_gadget_kernel<K, ACH, WPC>
+      <<<grid, 32 * kEvalWarps, smem, stream>>>(
+          (const int64_t*)c0, (const int64_t*)c1, (const int64_t*)bc0,
+          (const int64_t*)bc1, b_astride, b_rstride, (const uint32_t*)cekb,
+          (const int64_t*)qs, scale, (int64_t*)out, A, rows, n, D, log_b);
   return (int)cudaGetLastError();
 }
 
-template <int K>
-static int launch_k(const void* c0, const void* c1, const void* bc0,
+template <int K, int WPC>
+static int launch_a(const void* c0, const void* c1, const void* bc0,
                     const void* bc1, long long b_astride, long long b_rstride,
-                    const void* cek_rev, const void* qs, long long scale,
+                    const void* cekb, const void* qs, long long scale,
                     void* out, int A, int rows, int n, int D, int log_b,
                     cudaStream_t stream) {
-#define HADES_EVAL_LAUNCH(ach)                                              \
-  return launch<K, ach>(c0, c1, bc0, bc1, b_astride, b_rstride, cek_rev, qs, \
-                        scale, out, A, rows, n, D, log_b, stream)
+#define HADES_EVAL_LAUNCH(ach)                                             \
+  return launch<K, ach, WPC>(c0, c1, bc0, bc1, b_astride, b_rstride, cekb, \
+                             qs, scale, out, A, rows, n, D, log_b, stream)
   if (A == 1) HADES_EVAL_LAUNCH(1);
   if (A == 2) HADES_EVAL_LAUNCH(2);
   if (A <= 4) HADES_EVAL_LAUNCH(4);
@@ -156,23 +363,34 @@ static int launch_k(const void* c0, const void* c1, const void* bc0,
 #undef HADES_EVAL_LAUNCH
 }
 
-// c0/c1: the tile's first row of one column, rows of K*n contiguous int64.
-// bc0/bc1: bounds, lane (a, r) at a*b_astride + r*b_rstride (elements).
-// out: [A, rows, K] int64 residues.  K must be 1 or 2.
+// c0/c1: the tile's first row of one column, rows of K*n contiguous int64
+// (c1 16-byte aligned).  bc0/bc1: bounds, lane (a, r) at a*b_astride +
+// r*b_rstride (elements; bc1 16-byte aligned).  cekb: KeySet.cek_rev_bytes.
+// out: [A, rows, K] int64 residues.  K must be 1 or 2, log_b at most 8 and
+// D at most 8 (two words a coefficient; one when log_b = 8).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int hades_eval_gadget(
     const void* c0, const void* c1, const void* bc0, const void* bc1,
-    long long b_astride, long long b_rstride, const void* cek_rev,
+    long long b_astride, long long b_rstride, const void* cekb,
     const void* qs, long long scale, void* out, int A, int rows, int K,
     int n, int D, int log_b, void* stream) {
   if (A == 0 || rows == 0) return 0;
+  if (log_b < 1 || log_b > 8 || D < 1 || D > 8 || n % 32 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (K == 1)
-    return launch_k<1>(c0, c1, bc0, bc1, b_astride, b_rstride, cek_rev, qs,
-                       scale, out, A, rows, n, D, log_b, s);
-  if (K == 2)
-    return launch_k<2>(c0, c1, bc0, bc1, b_astride, b_rstride, cek_rev, qs,
-                       scale, out, A, rows, n, D, log_b, s);
+#define HADES_EVAL_K(k, wpc)                                                  \
+  return launch_a<k, wpc>(c0, c1, bc0, bc1, b_astride, b_rstride, cekb, qs, \
+                          scale, out, A, rows, n, D, log_b, s)
+  const bool one = log_b == 8 && D <= 4;   // kernels/cmp_eval.py: WPC
+  if (K == 1) {
+    if (one) HADES_EVAL_K(1, 1);
+    HADES_EVAL_K(1, 2);
+  }
+  if (K == 2) {
+    if (one) HADES_EVAL_K(2, 1);
+    HADES_EVAL_K(2, 2);
+  }
+#undef HADES_EVAL_K
   return (int)cudaErrorInvalidValue;
 }
 

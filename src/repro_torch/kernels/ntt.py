@@ -4,17 +4,21 @@ transform, each beside its plain version.
 `negacyclic_mul(a, b, ring)` computes a ⊛ b over [..., K, n] int64
 residues (batch dims broadcast): pre-twist, DIF stages (natural ->
 bit-reversed), pointwise product, DIT stages (bit-reversed -> natural),
-post-twist.  `ntt_br(x, ring, fwd=...)` is the forward half (pre-twist +
-DIF, natural -> bit-reversed) or the inverse half (DIT + post-twist,
-bit-reversed -> natural) on its own.  On CUDA tensors both launch
+post-twist.  `negacyclic_mul_ntt(a, b_br, ring)` is the same product with
+b one polynomial already transformed (`b_br = ntt_br(b)`, a key cached
+once per KeySet: `KeySet.key_br`), so each row costs two transforms, not
+three.  `ntt_br(x, ring, fwd=...)` is the forward half (pre-twist + DIF,
+natural -> bit-reversed) or the inverse half (DIT + post-twist,
+bit-reversed -> natural) on its own.  On CUDA tensors they launch
 `csrc/ntt.cu` (the port of the reference's Pallas `_mul_kernel`,
-`_ntt_kernel` and `_intt_kernel`); on CPU tensors they run
-`negacyclic_mul_plain` / `ntt_br_plain`, the same schedule in PyTorch.
-Inputs must be residues in [0, q).
+`_ntt_kernel` and `_intt_kernel`); on CPU tensors they run the `_plain`
+versions, the same schedule in PyTorch.  Inputs must be residues in
+[0, q).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -70,6 +74,13 @@ def ntt_br_plain(x: torch.Tensor, ring: R.Ring, *,
     return (_inv_stages(x, ring.stage_w_inv, q, n) * ring.psi_inv_pow) % q
 
 
+def negacyclic_mul_ntt_plain(a: torch.Tensor, b_br: torch.Tensor,
+                             ring: R.Ring) -> torch.Tensor:
+    """The kernel's function in PyTorch (any device; CPU in production)."""
+    prod = (ntt_br_plain(a, ring) * b_br) % ring.q_arr
+    return ntt_br_plain(prod, ring, fwd=False)
+
+
 def _check_poly(x: torch.Tensor, ring: R.Ring) -> None:
     K, n = ring.num_towers, ring.n
     if x.dtype != torch.int64 or tuple(x.shape[-2:]) != (K, n):
@@ -92,12 +103,10 @@ def ntt_br(x: torch.Tensor, ring: R.Ring, *, fwd: bool = True
     rows = math.prod(x.shape[:-2])
     src = x.reshape(rows, K, n).contiguous()
     out = torch.empty_like(src)
-    tw, w = ((ring.psi_pow, ring.stage_w) if fwd
-             else (ring.psi_inv_pow, ring.stage_w_inv))
     lib = _build.load("ntt")
-    rc = lib.hades_ntt_br(src.data_ptr(), out.data_ptr(), rows, tw.data_ptr(),
-                          w.data_ptr(), ring.q_arr.data_ptr(), K, n, int(fwd),
-                          _build.stream_handle(x.device))
+    rc = lib.hades_ntt_br(src.data_ptr(), out.data_ptr(), rows,
+                          ring.shoup.data_ptr(), ring.q_arr.data_ptr(), K, n,
+                          int(fwd), _build.stream_handle(x.device))
     _build.check(rc, "ntt_br")
     if rows:
         _build.count_launch("ntt_br_fwd" if fwd else "ntt_br_inv")
@@ -130,10 +139,46 @@ def negacyclic_mul(a: torch.Tensor, b: torch.Tensor,
     lib = _build.load("ntt")
     rc = lib.hades_negacyclic_mul(
         pa.data_ptr(), sa, pb.data_ptr(), sb, out.data_ptr(), rows,
-        ring.psi_pow.data_ptr(), ring.psi_inv_pow.data_ptr(),
-        ring.stage_w.data_ptr(), ring.stage_w_inv.data_ptr(),
-        ring.q_arr.data_ptr(), K, n, _build.stream_handle(a.device))
+        ring.shoup.data_ptr(), ring.q_arr.data_ptr(), K, n,
+        _build.stream_handle(a.device))
     _build.check(rc, "negacyclic_mul")
     if rows:
         _build.count_launch("negacyclic_mul")
+    return out.reshape(batch + (K, n))
+
+
+def negacyclic_mul_ntt(a: torch.Tensor, b_br: torch.Tensor, ring: R.Ring,
+                       b_shoup: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """a ⊛ b over [..., K, n] for one polynomial b given as its forward
+    transform b_br = ntt_br(b) ([K, n] or with leading dims of size 1):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    b_shoup is b_br's Shoup pairs (`R.shoup_pairs`), made here when not
+    given; `KeySet.key_br` caches both once per key."""
+    K, n = ring.num_towers, ring.n
+    for x in (a, b_br):
+        _check_poly(x, ring)
+    if math.prod(b_br.shape[:-2]) != 1:
+        raise ValueError(f"b_br must be one polynomial, got "
+                         f"{tuple(b_br.shape)}")
+    if not a.is_cuda:
+        return negacyclic_mul_ntt_plain(a, b_br, ring)
+    if b_shoup is None:
+        b_shoup = R.shoup_pairs(b_br.reshape(K, n), ring.q_arr)
+    if b_shoup.dtype != torch.int32 or b_shoup.numel() != 2 * K * n \
+            or b_shoup.device != a.device:
+        raise ValueError("b_shoup is not b_br's [K, n, 2] int32 pairs")
+    batch = tuple(a.shape[:-2])
+    rows = math.prod(batch)
+    pa, sa = _operand(a, batch, K, n)
+    key = b_shoup.contiguous()
+    out = torch.empty((rows, K, n), dtype=torch.int64, device=a.device)
+    lib = _build.load("ntt")
+    rc = lib.hades_negacyclic_mul_ntt(
+        pa.data_ptr(), sa, key.data_ptr(), out.data_ptr(), rows,
+        ring.shoup.data_ptr(), ring.q_arr.data_ptr(), K, n,
+        _build.stream_handle(a.device))
+    _build.check(rc, "negacyclic_mul_ntt")
+    if rows:
+        _build.count_launch("negacyclic_mul_ntt")
     return out.reshape(batch + (K, n))

@@ -87,7 +87,7 @@ def gadget_tile_values(ks: KeySet, uniq: Ciphertext, sel, bounds0, bounds1,
     coeff0 = CK.eval_coeff0_gadget(
         uniq.c0, uniq.c1, row_offset, rows, sel, bounds0, bounds1,
         ks.cek_rev, ks.ring.q_arr[:, 0], params.scale,
-        params.profile.gadget_log_base)
+        params.profile.gadget_log_base, cek_bytes=ks.cek_rev_bytes)
     return R.crt_centered(params, coeff0)
 
 

@@ -173,16 +173,16 @@ def test_ring_matches_reference(n, towers, rng):
     assert np.array_equal(TR.to_rns(tp, coeffs), RR.to_rns(rp, coeffs))
 
 
-@pytest.mark.parametrize("profile", ["test-bfv", "test-ckks", "paper-bfv",
-                                     "paper-ckks"])
+@pytest.mark.parametrize("profile", sorted(REF_PROFILES))
 def test_crt_centered_matches_reference(profile, rng):
-    """Exact for Q up to 2^62, edges (0, q-1, Q/2 boundary) included."""
+    """Garner's form is exact for Q up to 2^62: every profile, random
+    residues and the edges 0, 1, q-1, Q/2, Q/2 + 1 and Q - 1."""
     rp, tp = ref_make_params(profile), torch_make_params(profile)
     qs = np.asarray(rp.qs)
     res = rng.integers(0, qs, size=(257, len(qs)))
     res[0], res[1] = 0, qs - 1
     half = rp.Q // 2
-    for j, x in enumerate((half, half + 1, rp.Q - 1)):
+    for j, x in enumerate((half, half + 1, rp.Q - 1, 1)):
         res[2 + j] = [x % q for q in rp.qs]
     want = RR.crt_centered(rp, jnp.asarray(res))
     assert np.array_equal(n_(TR.crt_centered(tp, t_(res))), want)

@@ -31,6 +31,7 @@ from repro.core.params import make_params as ref_make_params
 from repro.kernels import cmp_eval as RCK
 from repro.kernels import ops as RKO
 from repro_torch.core import compare as TC
+from repro_torch.core import encrypt as TE
 from repro_torch.core import ring as TR
 from repro_torch.core.encrypt import Ciphertext as TCiphertext
 from repro_torch.core.keys import keygen as torch_keygen
@@ -87,6 +88,24 @@ def _gadget_args(tks):
 # gadget Eval: the plain version vs the reference kernel and eval_value
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _ref_gadget_coeff0(profile):
+    """The reference's Pallas `eval_coeff0_gadget` (interpret mode, through
+    its own kernel path `kernels/ops.py::eval_values`) on `_operands`."""
+    ref_ks = get_scheme_ks(profile)
+    rp = ref_ks.params
+    E = rp.num_towers * rp.gadget_digits_per_tower
+
+    @jax.jit
+    def ref_kernel(x, y):
+        d = RC.ct_sub(ref_ks.ring, x, y)
+        dig = digit_decompose(rp, d.c1).reshape(16, E, 1, rp.n)
+        dig = jnp.broadcast_to(dig, (16, E, rp.num_towers, rp.n))
+        return RCK.eval_coeff0_gadget(d.c0, dig, RCK.cek_gadget_to_br(ref_ks),
+                                      ref_ks.ring, rp.scale, interpret=True)
+    return np.asarray(ref_kernel(*_operands(profile)))
+
+
 @pytest.mark.parametrize("profile", ["test-bfv", "test-ckks"])
 def test_plain_gadget_eval_matches_reference_kernel(profile):
     """Per-lane bounds ([A, rows, K, n]) against the reference's Pallas
@@ -95,17 +114,7 @@ def test_plain_gadget_eval_matches_reference_kernel(profile):
     tks = ks_to_torch(ref_ks)
     rp = ref_ks.params
     ct_a, ct_b = _operands(profile)
-    E = rp.num_towers * rp.gadget_digits_per_tower
-
-    @jax.jit
-    def ref_kernel(x, y):
-        # the reference's own kernel path (`kernels/ops.py::eval_values`)
-        d = RC.ct_sub(ref_ks.ring, x, y)
-        dig = digit_decompose(rp, d.c1).reshape(16, E, 1, rp.n)
-        dig = jnp.broadcast_to(dig, (16, E, rp.num_towers, rp.n))
-        return RCK.eval_coeff0_gadget(d.c0, dig, RCK.cek_gadget_to_br(ref_ks),
-                                      ref_ks.ring, rp.scale, interpret=True)
-    want = ref_kernel(ct_a, ct_b)
+    want = _ref_gadget_coeff0(profile)
     a, b = ct_to_torch(ct_a), ct_to_torch(ct_b)
     got = TCK.eval_coeff0_gadget(a.c0[None], a.c1[None], 0, 16, [0],
                                  b.c0[None], b.c1[None], *_gadget_args(tks))
@@ -113,6 +122,63 @@ def test_plain_gadget_eval_matches_reference_kernel(profile):
     assert np.array_equal(n_(got[0]), want)
     assert np.array_equal(n_(TKO.eval_values(tks, a, b)),
                           _ref_eval(ref_ks)(ct_a, ct_b))
+
+
+@pytest.mark.parametrize("profile", ["test-bfv", "test-ckks"])
+def test_bytes_gadget_eval_matches_plain_and_reference(profile):
+    """The tensor-core kernel's arithmetic (packed digit bytes against
+    `KeySet.cek_rev_bytes`, s32 runs, byte recombination) equals the plain
+    Eval and the reference's Pallas kernel, per-lane and per-atom bounds;
+    test-bfv's 6-bit digits take two words a coefficient."""
+    ref_ks = get_scheme_ks(profile)
+    tks = ks_to_torch(ref_ks)
+    ct_a, ct_b = _operands(profile)
+    a, b = ct_to_torch(ct_a), ct_to_torch(ct_b)
+    args = _gadget_args(tks)
+    assert TCK.words_per_coeff(tks.params.gadget_digits_per_tower,
+                               tks.params.profile.gadget_log_base) == (
+        2 if profile == "test-bfv" else 1)
+    got = TCK.eval_coeff0_gadget_bytes_plain(
+        a.c0[None], a.c1[None], 0, 16, [0], b.c0[None], b.c1[None], *args,
+        cek_bytes=tks.cek_rev_bytes)
+    assert np.array_equal(n_(got[0]), _ref_gadget_coeff0(profile))
+    sel, bnd = [0, 0, 0], (b.c0[:3], b.c1[:3])
+    want = TCK.eval_coeff0_gadget_plain(a.c0[None], a.c1[None], 2, 11, sel,
+                                        *bnd, *args)
+    got = TCK.eval_coeff0_gadget_bytes_plain(a.c0[None], a.c1[None], 2, 11,
+                                             sel, *bnd, *args)
+    assert torch.equal(got, want)
+
+
+def test_bytes_gadget_eval_flush_at_paper_ckks():
+    """One paper-ckks lane (n = 16,384, two towers) with d = q - 1 (bound
+    = c1 + 1) against a CEK of q - 1 everywhere: one s32 sum over its
+    131,072 terms would overflow, the runs of 16,384 terms do not, and
+    the result equals the plain Eval and Python integers."""
+    tp = torch_make_params("paper-ckks")
+    K, n, D = tp.num_towers, tp.n, tp.gadget_digits_per_tower
+    qs = torch.tensor(tp.qs)
+    rng = np.random.default_rng(5)
+    c1 = t_(rng.integers(0, np.asarray(tp.qs)[:, None], size=(1, K, n)))
+    c0 = t_(rng.integers(0, np.asarray(tp.qs)[:, None], size=(1, K, n)))
+    b1, b0 = (c1 + 1) % qs[:, None], c0.clone()
+    cek_rev = (qs[None, None, :, None] - 1).expand(K, D, K, n).contiguous()
+    args = (cek_rev, qs, tp.scale, tp.profile.gadget_log_base)
+    lb = tp.profile.gadget_log_base
+    dig = [[((q - 1) >> (j * lb)) & ((1 << lb) - 1) for j in range(D)]
+           for q in tp.qs]
+    # column (k, b) of one unflushed s32: n * sum_ks,j dig * byte_b(q_k - 1)
+    cols = [n * sum(map(sum, dig)) * ((q - 1) >> (8 * b) & 255)
+            for q in tp.qs for b in range(4)]
+    assert max(cols) > (1 << 31) - 1
+    assert 4 * TCK.FLUSH_WORDS * 255 * 255 < (1 << 31) - 1
+    got = TCK.eval_coeff0_gadget_bytes_plain(c0[None], c1[None], 0, 1, [0],
+                                             b0, b1, *args)
+    assert torch.equal(got, TCK.eval_coeff0_gadget_plain(
+        c0[None], c1[None], 0, 1, [0], b0, b1, *args))
+    for k, q in enumerate(tp.qs):
+        keyed = n * sum(map(sum, dig)) * (q - 1)
+        assert int(got[0, 0, k]) == keyed % q      # d0 = 0
 
 
 @pytest.mark.parametrize("profile", ["test-bfv", "test-ckks"])
@@ -183,6 +249,42 @@ def test_plain_mul_matches_reference_kernel(n, towers, batch, rng):
         jnp.asarray(b[0]), a.shape), rring, interpret=True)
     assert np.array_equal(n_(TNK.negacyclic_mul(t_(a), t_(b[0]), tring)),
                           want)
+
+
+@pytest.mark.parametrize("profile", ["test-bfv", "test-ckks"])
+def test_key_ntt_mul_matches_reference(profile, rng):
+    """The cached key transforms (`KeySet.key_br`) equal the reference's
+    Pallas ntt_br of pk0, pk1 and sk, and `negacyclic_mul_ntt` against
+    each (two transforms a row) equals the reference's fused multiply
+    (three) and the port's `negacyclic_mul`; encrypt and decrypt take
+    this route."""
+    ref_ks = get_scheme_ks(profile)
+    tks = ks_to_torch(ref_ks)
+    rp, ring = ref_ks.params, tks.ring
+    a = rng.integers(0, np.asarray(rp.qs)[:, None],
+                     size=(3, rp.num_towers, rp.n))
+    names = ("pk0", "pk1", "sk")
+    keys = jnp.stack([getattr(ref_ks, k) for k in names])      # [3, K, n]
+    ref_br = RKO.ntt(keys, ref_ks.ring, interpret=True)
+    ref_mul = RKO.negacyclic_mul(            # row 3i + r: a[r] * key i
+        jnp.tile(jnp.asarray(a), (3, 1, 1)), jnp.repeat(keys, 3, axis=0),
+        ref_ks.ring, interpret=True).reshape((3,) + a.shape)
+    for i, name in enumerate(names):
+        br, pairs = tks.key_br(name)
+        assert tks.key_br(name)[0] is br                # cached
+        assert np.array_equal(n_(br), ref_br[i])
+        assert np.array_equal(n_(pairs[..., 0]), n_(br))
+        want = ref_mul[i]
+        assert np.array_equal(n_(TNK.negacyclic_mul_ntt_plain(t_(a), br,
+                                                              ring)), want)
+        assert np.array_equal(n_(TNK.negacyclic_mul_ntt(t_(a), br, ring)),
+                              want)
+        assert np.array_equal(n_(TNK.negacyclic_mul(
+            t_(a), t_(np.asarray(keys[i])), ring)), want)
+    with pytest.raises(ValueError, match="one polynomial"):
+        TNK.negacyclic_mul_ntt(t_(a), t_(a), ring)
+    with pytest.raises(ValueError, match="no key polynomial"):
+        tks.key_br("cek")
 
 
 def test_mul_rejects_bad_operands():
@@ -399,9 +501,10 @@ def test_cpu_wrappers_count_no_launch(bfv_keys):
     TKO.eval_values(_paper_ks("test-bfv")[1], a, b)
     TR.negacyclic_mul(tks.ring, tks.pk0, tks.sk)
     TR.intt(tks.ring, TR.ntt(tks.ring, tks.pk0))
+    TE.decrypt(tks, TE.encrypt(tks, 3, 1))
     assert set(_build.LAUNCHES) == {"eval_coeff0_gadget", "eval_coeff0_paper",
-                                    "negacyclic_mul", "ntt_br_fwd",
-                                    "ntt_br_inv"}
+                                    "negacyclic_mul", "negacyclic_mul_ntt",
+                                    "ntt_br_fwd", "ntt_br_inv"}
     assert not any(_build.LAUNCHES.values())
 
 
@@ -435,6 +538,72 @@ def test_build_sources_and_missing_compiler(tmp_path, monkeypatch):
         return
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+
+
+_MODARITH_PROBE = r"""
+#include "modarith.cuh"
+extern "C" {
+uint32_t probe_shoup(uint32_t w, uint32_t q) { return hades::shoup(w, q); }
+uint32_t probe_mul_shoup(uint32_t x, uint32_t w, uint32_t q) {
+  return hades::mul_shoup(x, w, hades::shoup(w, q), q);
+}
+uint32_t probe_addmod(uint32_t a, uint32_t b, uint32_t q) {
+  return hades::addmod(a, b, q);
+}
+uint32_t probe_submod(uint32_t a, uint32_t b, uint32_t q) {
+  return hades::submod(a, b, q);
+}
+uint32_t probe_recombine(const uint64_t* acc, uint32_t q) {
+  return hades::recombine_bytes(acc, q, hades::barrett_m(q));
+}
+}
+"""
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_modarith_helpers_host_build(tmp_path):
+    """`csrc/modarith.cuh` built for the host with g++ (its functions are
+    __host__ __device__): Shoup's companion and multiply over edge
+    residues, including inputs up to 2^32 - 1, the branch-free add and
+    subtract, and the byte recombination of the tensor-core Eval,
+    against Python integers."""
+    import ctypes
+    src = tmp_path / "probe.cpp"
+    src.write_text(_MODARITH_PROBE)
+    lib_path = tmp_path / "probe.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                    f"-I{_build.CSRC}", "-o", str(lib_path), str(src)],
+                   check=True, timeout=120)
+    lib = ctypes.CDLL(str(lib_path))
+    u32, u64p = ctypes.c_uint32, ctypes.POINTER(ctypes.c_uint64)
+    lib.probe_shoup.argtypes = [u32, u32]
+    lib.probe_mul_shoup.argtypes = [u32, u32, u32]
+    lib.probe_addmod.argtypes = lib.probe_submod.argtypes = [u32, u32, u32]
+    lib.probe_recombine.argtypes = [u64p, u32]
+    for fn in (lib.probe_shoup, lib.probe_mul_shoup, lib.probe_addmod,
+               lib.probe_submod, lib.probe_recombine):
+        fn.restype = u32
+    rng = np.random.default_rng(3)
+    primes = sorted({q for prof in ("test-bfv", "test-ckks", "paper-bfv",
+                                    "paper-ckks")
+                     for q in torch_make_params(prof).qs} | {12289, 3})
+    for q in primes:
+        ws = {0, 1, q - 1, q // 2, *rng.integers(0, q, 6).tolist()}
+        xs = {0, 1, q - 1, q, 2 * q - 1, (1 << 32) - 1,
+              *rng.integers(0, 1 << 32, 6).tolist()}
+        for w in ws:
+            assert lib.probe_shoup(w, q) == (w << 32) // q
+            for x in xs:
+                assert lib.probe_mul_shoup(x, w, q) == x * w % q, (q, w, x)
+            for v in ws:                  # residues in [0, q)
+                assert lib.probe_addmod(v, w, q) == (v + w) % q
+                assert lib.probe_submod(v, w, q) == (v - w) % q
+        top = 33025 * 255 * 255 * 4          # a flushed column's worst sum
+        for acc in ([0, 0, 0, 0], [q - 1] * 4, [top] * 4,
+                    rng.integers(0, top, 4).tolist()):
+            arr = (ctypes.c_uint64 * 4)(*acc)
+            want = sum(a << (8 * b) for b, a in enumerate(acc)) % q
+            assert lib.probe_recombine(arr, q) == want
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -509,6 +678,11 @@ def test_cuda_mul_kernel_equals_plain(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     assert _build.LAUNCHES["negacyclic_mul"] == before + 3
+    b_br = TNK.ntt_br(b[:1], ring)
+    got = TNK.negacyclic_mul_ntt(a, b_br, ring)
+    torch.cuda.synchronize()
+    assert torch.equal(got, TNK.negacyclic_mul_plain(a, b[0], ring))
+    assert _build.LAUNCHES["negacyclic_mul_ntt"] >= 1
 
 
 @pytest.mark.gpu
