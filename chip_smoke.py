@@ -52,11 +52,35 @@ Phases, each printing one JSON line:
                tiles, 2,048-row delta tiles and the full 65,536 rows,
                bounds pass, lane form at 32,768 sort pairs, 65,536 merge
                pairs and the probe lanes, one bound for every lane).
-  9. card    — the card's name and power limit (nvidia-smi), then one
+  9. shard   — after the write table is freed, the serve keys' hg38 table
+               re-encrypted (same seed, same rows) and re-partitioned into
+               4 logical shards ([4, 16,384] slots); a
+               ShardedQueryServer(batch=4) answers the 8 requests and the
+               sharded benchmark's query (30th-70th percentile Range,
+               TopK 8), each equal to the unsharded server's answer and
+               the truth; the scan ratio against S = 1 and the merge
+               bound; a ShardedIndex Eq probe; a 431-row sharded insert,
+               a Range over base ∪ delta, compaction, the Range again.
+               Then one shard-stacked scan tile against its plain version,
+               and the gadget Eval against its plain version at every
+               shape the path gave it, on rows of the sharded column.
+ 10. join    — the join benchmark's traffic (hg38 keys mod 4,302):
+               sort-merge at full hg38 through QueryServer.submit_join
+               (left 34,423 rows, right the last 17,211; both SortedIndex
+               builds timed), then nested loops on a cut (the first 8,192
+               x 4,096 rows) in gadget mode (two joins deduped onto one
+               grid, and a [4 x 4]-shard join) and in paper mode (the
+               write keys).  Then the gadget Eval against its plain
+               version at every shape the path gave it, and the pair-grid
+               Eval layouts (gadget: the negated right column against
+               negated left atoms, with a q - 1 digit tile; paper: the
+               column form of both sides) against their plain versions.
+ 11. card    — the card's name and power limit (nvidia-smi), then one
                {"kernels": [...]} line with every kernel's numbers.
 
-Launch counts are zeroed just before each path (serve, keymul, write)
-and read just after; each path's kernels must have launched.  The last
+Launch counts are zeroed just before each path (serve, keymul, write,
+shard, join) and read just after; each path's kernels must have
+launched.  The last
 line is the device record.  Any failure raises: the script then exits
 non-zero without it, as it does with no CUDA device or without the
 repository beside it.  It imports nothing of JAX or of `repro`.
@@ -82,6 +106,10 @@ INDEX_ROWS = 4096
 KEYMUL_LANES = 1024
 WRITE_SHARE = 0.05          # the write benchmark's insert share
 WRITE_STEPS = 4
+SHARDS = 4
+SHARD_TOPK = 8              # the sharded benchmark's k
+SHARD_INSERT = 431
+JOIN_CUT = (8192, 4096)     # nested-loop cut: left x right rows
 SEED = 0
 
 # H100 SXM published memory rate (NVIDIA data sheet, at 700 W)
@@ -106,6 +134,12 @@ SERVE_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt",
 KEYMUL_KERNELS = ("ntt_br_fwd", "ntt_br_inv")
 WRITE_KERNELS = ("eval_coeff0_paper", "negacyclic_mul_ntt",
                  "negacyclic_mul", "ntt_br_fwd")
+# the shard path encrypts its pad and insert rows and scans, sorts and
+# probes through the gadget Eval; the join path encrypts its tables and
+# runs both Evals (gadget sort-merge and nested cut, paper nested cut)
+SHARD_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt")
+JOIN_KERNELS = ("eval_coeff0_gadget", "eval_coeff0_paper",
+                "negacyclic_mul_ntt")
 
 
 def emit(obj) -> None:
@@ -905,6 +939,83 @@ def _device_summary(prof, wall_s: float, top: int = 6) -> dict:
                            for name, (c, us) in ranked}}
 
 
+def record_gadget_shapes() -> tuple:
+    """Record the shape of every call of the gadget Eval's wrapper until
+    `stop()` (every module reaches the kernel through the attribute of
+    `cmp_eval`).  Returns (shapes, stop): shapes maps (columns, width,
+    rows, per-lane bounds, sel) to [calls, the first call's row offset]."""
+    from repro_torch.kernels import cmp_eval as CK
+    inner, shapes = CK.eval_coeff0_gadget, {}
+
+    def recorded(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
+                 bounds_c1, *args, **kwargs):
+        key = (*uniq_c1.shape[:2], rows, bounds_c1.dim() == 4,
+               tuple(np.asarray(sel, np.int64).tolist()))
+        shapes.setdefault(key, [0, row_offset])[0] += 1
+        return inner(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
+                     bounds_c1, *args, **kwargs)
+
+    def stop():
+        CK.eval_coeff0_gadget = inner
+    CK.eval_coeff0_gadget = recorded
+    return shapes, stop
+
+
+def check_gadget_shapes(ks, source, shapes: dict, seed: int,
+                        rate) -> dict:
+    """The gadget Eval kernel against its plain version at every shape a
+    path gave it (`record_gadget_shapes`), tolerance 0: the column stack
+    and the bounds are rows of the path's own column `source` ([N, K, n])
+    drawn by a seeded generator, at the path's first row offset and
+    atom selection.  Each shape is timed by CUDA events beside its bound
+    (one column tile per unique column the selection names)."""
+    import torch
+    from repro_torch.core import sampling
+    from repro_torch.kernels import cmp_eval as CK
+
+    params = ks.params
+    K, n, D = params.num_towers, params.n, params.gadget_digits_per_tower
+    args = (ks.cek_rev, ks.ring.q_arr[:, 0], params.scale,
+            params.profile.gadget_log_base)
+    gen = sampling.make_generator(seed, ks.device)
+
+    def draw(*shape):
+        pick = torch.randint(0, source.c0.shape[0], (int(np.prod(shape)),),
+                             generator=gen, device=ks.device)
+        return (source.c0[pick].view(*shape, K, n),
+                source.c1[pick].view(*shape, K, n))
+    eq, out = True, []
+    for (U, W, rows, per_lane, sel), (calls, off) in sorted(
+            shapes.items(), key=lambda kv: -kv[1][0]):
+        A = len(sel)
+        u0, u1 = draw(U, W)
+        b0, b1 = draw(A, rows) if per_lane else draw(A)
+
+        def kernel():
+            return CK.eval_coeff0_gadget(u0, u1, off, rows, sel, b0, b1,
+                                         *args, cek_bytes=ks.cek_rev_bytes)
+        got = kernel()
+        want = CK.eval_coeff0_gadget_plain(u0, u1, off, rows, sel, b0, b1,
+                                           *args)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        eq &= same
+        groups = [sel.count(u) for u in dict.fromkeys(sel)]
+        bounds = [eval_bound(a, rows, K, n, D, per_lane, rate)
+                  for a in groups]
+        out.append({"columns": U, "width": W, "row_offset": off,
+                    "rows": rows, "atoms": A, "per_lane": per_lane,
+                    "launches_per_call": len(groups), "calls": calls,
+                    "equal": same, "max_abs_err": max_abs_err(got, want),
+                    "ms": time_cuda(kernel, 3),
+                    **_bound(sum(b["bytes"] for b in bounds),
+                             sum(b["ops"] for b in bounds),
+                             INT8_TC_OPS_PER_S)})
+        del u0, u1, b0, b1, got, want
+    torch.cuda.empty_cache()
+    return {"tolerance": 0, "equal": eq, "shapes": out}
+
+
 def phase_paper(ks, table, write, rate) -> dict:
     """The paper Eval kernel against its plain version at every shape the
     write phase gave it, on the write table's column; timed at the scan
@@ -993,6 +1104,471 @@ def phase_paper(ks, table, write, rate) -> dict:
     return out
 
 
+def _sharded_query(ks, vals):
+    """The sharded benchmark's query: a Range over the 30th-70th
+    percentile with TopK SHARD_TOPK (benchmarks/db_engine.py run_sharded),
+    and its truth (mask, top values)."""
+    from repro_torch.core import encrypt as E
+    from repro_torch.db import plan as P
+    lo, hi = (int(np.percentile(vals, 30)), int(np.percentile(vals, 70)))
+    q = P.Query(where=P.Range("value", E.encrypt(ks, lo, SEED + 31),
+                              E.encrypt(ks, hi, SEED + 32)),
+                top_k=P.TopK("value", SHARD_TOPK))
+    mask = (vals >= lo) & (vals <= hi)
+    return q, mask, sorted(vals[mask].tolist(), reverse=True)[:SHARD_TOPK]
+
+
+def phase_shard(ks, vals, rate) -> dict:
+    """The sharded read and write path over the serve keys' hg38 table
+    (re-encrypted under the serve phase's seed: the same rows), with
+    every launch count zeroed just before it, the served batches and the
+    index build under torch.profiler; then one shard-stacked scan tile
+    against its plain version."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import db
+    from repro_torch.core import encrypt as E
+    from repro_torch.core import ring as R
+    from repro_torch.core.compare import next_pow2
+    from repro_torch.db import plan as P
+    from repro_torch.db.executor import dedup_atom_columns, stack_atom_bounds
+    from repro_torch.db.query_serve import QueryServer
+    from repro_torch.db.shard import executor as SX
+    from repro_torch.db.table import Table
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import cmp_eval as CK
+    from repro_torch.kernels import ops as KO
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = {}
+    table = Table.from_arrays(ks, "hg38", {"value": vals}, SEED + 1)
+    reqs = _requests(ks, vals, np.random.default_rng(SEED))
+    q_top, top_mask, top_want = _sharded_query(ks, vals)
+    # the unsharded answers, and S = 1's counters for the ratio check
+    flat = QueryServer(ks, table, batch=BATCH)
+    fids = [flat.submit(q) for q, _ in reqs] + [flat.submit(q_top)]
+    flat_res = flat.run()
+    one = db.ShardedTable.from_table(ks, table, spec=db.ShardSpec.create(1))
+    one_stats = db.execute(ks, one, q_top).stats
+    del one, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    shapes, stop_recording = record_gadget_shapes()
+    t0 = time.perf_counter()
+    st = db.ShardedTable.from_table(ks, table,
+                                    spec=db.ShardSpec.create(SHARDS))
+    walls["partition_s"] = sync_s(t0)
+    n_sp = st.n_padded_per_shard
+    del table
+    server = db.ShardedQueryServer(ks, st, batch=BATCH)
+    ids = [server.submit(q) for q, _ in reqs] + [server.submit(q_top)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = server.run()
+        walls["serve_s"] = sync_s(t0)
+    serve_dev = _device_summary(prof, walls["serve_s"])
+    del prof
+    correct = 0
+    for qid, fid, (_, truth) in zip(ids, fids, reqs):
+        want = np.nonzero(truth(vals))[0]
+        correct += int(np.array_equal(res[qid].row_ids, want)
+                       and np.array_equal(flat_res[fid].row_ids, want))
+    top = res[ids[-1]]
+    top_ok = bool(np.array_equal(top.mask, top_mask)
+                  and vals[top.row_ids].tolist() == top_want
+                  and vals[flat_res[fids[-1]].row_ids].tolist() == top_want)
+    ratio = (top.stats.per_shard_scan_compares
+             / one_stats.per_shard_scan_compares)
+    kp, sp = next_pow2(SHARD_TOPK), next_pow2(SHARDS)
+    merge_bound = (sp - 1) * (kp + (kp // 2) * max(1, kp.bit_length() - 1))
+
+    # ---- fan-out index: one Eq probe --------------------------------------
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        idx = db.ShardedIndex.build(ks, st, "value")
+        walls["index_build_s"] = sync_s(t0)
+    index_dev = _device_summary(prof, walls["index_build_s"])
+    del prof
+    target = int(vals[len(vals) // 3])
+    t0 = time.perf_counter()
+    probe = db.execute(ks, st, P.Eq("value", E.encrypt(ks, target,
+                                                       SEED + 33)),
+                       indexes={"value": idx})
+    walls["eq_probe_s"] = sync_s(t0)
+    probe_ok = bool(np.array_equal(probe.mask, vals == target))
+
+    # ---- writes: insert, Range over base ∪ delta, compact, Range ---------
+    rng = np.random.default_rng(SEED + 34)
+    ins_vals = rng.choice(vals, SHARD_INSERT)
+    all_vals = np.concatenate([vals, ins_vals])
+    writer = db.ShardedQueryServer(ks, st, indexes={"value": idx},
+                                   batch=BATCH)
+    lo, hi = (int(v) for v in np.sort(rng.choice(vals, 2, replace=False)))
+    rq = P.Range("value", E.encrypt(ks, lo, SEED + 35),
+                 E.encrypt(ks, hi, SEED + 36))
+    want = (all_vals >= lo) & (all_vals <= hi)
+    t0 = time.perf_counter()
+    ins = writer.submit_insert({"value": ins_vals}, SEED + 37)
+    qid = writer.submit(rq)
+    wres = writer.run()
+    walls["insert_range_s"] = sync_s(t0)
+    delta_slots = st.delta_block
+    t0 = time.perf_counter()
+    scan = db.execute(ks, st, rq)
+    walls["union_scan_s"] = sync_s(t0)
+    write_ok = bool(np.array_equal(wres[ins].row_ids,
+                                   len(vals) + np.arange(SHARD_INSERT))
+                    and np.array_equal(wres[qid].mask, want)
+                    and np.array_equal(scan.mask, want))
+    t0 = time.perf_counter()
+    cstats = writer.compact()
+    walls["compact_s"] = sync_s(t0)
+    after = db.execute(ks, st, rq, indexes=writer.indexes)
+    after_scan = db.execute(ks, st, rq)
+    compact_ok = bool(not st.has_delta
+                      and np.array_equal(after.mask, want)
+                      and np.array_equal(after_scan.mask, want))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    stop_recording()
+    peak = torch.cuda.max_memory_allocated()
+
+    # ---- one shard-stacked scan tile against its plain version -----------
+    params = ks.params
+    K, n, D = params.num_towers, params.n, params.gadget_digits_per_tower
+    atoms = [a for q, _ in reqs[:BATCH] for i in range(
+        P.compile_plan(q).num_leaves) for a in P.compile_plan(q).scan_atoms(i)]
+    A, W = len(atoms), st.shard_scan_width
+    T = KO.lane_tile(W, SHARDS * A)
+    uniq, sel = dedup_atom_columns(st, atoms, st.scan_stack)
+    bounds = stack_atom_bounds(atoms)
+    lo_row = W - T
+    got = SX.sharded_tile_values(ks, uniq, sel, bounds, lo_row, T)
+    qs = ks.ring.q_arr[:, 0]
+
+    tile_want = torch.stack([R.crt_centered(
+        params, CK.eval_coeff0_gadget_plain(
+            uniq.c0[s], uniq.c1[s], lo_row, T, sel, bounds.c0[:, 0],
+            bounds.c1[:, 0], ks.cek_rev, qs, params.scale,
+            params.profile.gadget_log_base)) for s in range(SHARDS)])
+    torch.cuda.synchronize()
+    tile_eq = bool(torch.equal(got, tile_want))
+    tile_err = max_abs_err(got, tile_want)
+
+    def kernel_tile():
+        for s in range(SHARDS):
+            CK.eval_coeff0_gadget(
+                uniq.c0[s], uniq.c1[s], lo_row, T, sel, bounds.c0[:, 0],
+                bounds.c1[:, 0], ks.cek_rev, qs, params.scale,
+                params.profile.gadget_log_base, cek_bytes=ks.cek_rev_bytes)
+
+    def plain_kernels():
+        for s in range(SHARDS):
+            CK.eval_coeff0_gadget_plain(
+                uniq.c0[s], uniq.c1[s], lo_row, T, sel, bounds.c0[:, 0],
+                bounds.c1[:, 0], ks.cek_rev, qs, params.scale,
+                params.profile.gadget_log_base)
+    one_b = eval_bound(A, T, K, n, D, False, rate)
+    tile = {"shards": SHARDS, "atoms": A, "rows": T,
+            "launches": SHARDS * len(set(sel.tolist())),
+            "equal": tile_eq, "max_abs_err": tile_err,
+            "ms": time_cuda(kernel_tile, 5),
+            "plain_ms": time_cuda(plain_kernels, 1),
+            **_bound(SHARDS * one_b["bytes"], SHARDS * one_b["ops"],
+                     INT8_TC_OPS_PER_S)}
+    del uniq, bounds, got, tile_want
+    stack = st.columns["value"]                      # [S, N_sp, K, n]
+    rows = type(stack)(stack.c0.reshape(-1, K, n),
+                       stack.c1.reshape(-1, K, n))
+    path_shapes = check_gadget_shapes(ks, rows, shapes, SEED + 45, rate)
+    del stack, rows
+    out = {
+        "phase": "shard", "profile": PROFILE, "mode": "gadget",
+        "shards": SHARDS, "rows": int(len(vals)),
+        "n_padded_per_shard": n_sp,
+        "requests": len(ids), "batch": BATCH,
+        "correct": f"{correct}/{len(reqs)}", "topk_ok": top_ok,
+        "per_shard_scan_compares": top.stats.per_shard_scan_compares,
+        "per_shard_scan_compares_s1": one_stats.per_shard_scan_compares,
+        "scan_ratio": ratio, "merge_compares": top.stats.merge_compares,
+        "merge_bound": merge_bound,
+        "batches": [{"queries": b.queries, "eval_calls": b.eval_calls,
+                     "scan_compares": b.scan_compares,
+                     "merge_compares": b.merge_compares,
+                     "wall_s": b.wall_s} for b in server.batch_log],
+        "index_build_compares": idx.build_compares,
+        "eq_probe": {"exact": probe_ok,
+                     "compares": probe.stats.index_compares,
+                     "matched": int((vals == target).sum())},
+        "insert": {"rows": SHARD_INSERT, "delta_slots": delta_slots,
+                   "exact": write_ok},
+        "compact": {"merge_compares": cstats.merge_compares,
+                    "rebuild_compares": cstats.rebuild_compares,
+                    "rounds": cstats.merge_rounds, "exact": compact_ok},
+        "walls": walls, "serve_device": serve_dev,
+        "index_build_device": index_dev, "launches": launches,
+        "peak_mem_bytes": peak, "scan_tile": tile,
+        "gadget_shapes": path_shapes,
+    }
+    emit(out)
+    require(correct == len(reqs), f"sharded server answered {out['correct']}")
+    require(top_ok, "the sharded top-k differs from the truth")
+    require(abs(ratio - 1 / SHARDS) < 1e-12,
+            f"per-shard scan ratio {ratio} != 1/{SHARDS}")
+    require(top.stats.merge_compares <= merge_bound,
+            f"merge {top.stats.merge_compares} > k·S bound {merge_bound}")
+    require(probe_ok, "the sharded index probe differs from the truth")
+    require(write_ok, "the sharded insert or the union read diverged")
+    require(compact_ok, "sharded compaction left a delta or a wrong answer")
+    require(tile_eq, f"sharded scan tile != plain (max |err| {tile_err})")
+    require(path_shapes["equal"], "the gadget Eval != plain at a shard "
+            f"path shape: {path_shapes['shapes']}")
+    require(all(launches[k] > 0 for k in SHARD_KERNELS),
+            f"a kernel never launched on the shard path: {launches}")
+    return out
+
+
+def phase_join(ks, wks, vals, rate) -> tuple:
+    """The join benchmark's traffic, with every launch count zeroed just
+    before it: sort-merge at full hg38 (gadget, serve keys), then nested
+    loops on the JOIN_CUT rows in gadget mode (two joins sharing one grid
+    through a QueryServer batch, and a [SHARDS x SHARDS]-shard join) and
+    in paper mode (the write keys `wks`); the sort-merge join and the
+    shared grid run under torch.profiler.  Returns the cut tables for
+    the layout checks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import db
+    from repro_torch.db import join as J
+    from repro_torch.db import plan as P
+    from repro_torch.db.index import SortedIndex
+    from repro_torch.db.query_serve import QueryServer
+    from repro_torch.db.table import Table
+    from repro_torch.kernels import _build
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    n_l = len(vals)
+    n_r = n_l // 2
+    buckets = max(8, n_l // 8)
+    lk, rk = vals % buckets, vals[n_l - n_r:] % buckets
+    join = P.Join(None, None, on="k")
+    walls = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    shapes, stop_recording = record_gadget_shapes()
+    t0 = time.perf_counter()
+    left = Table.from_arrays(ks, "hg38_l", {"k": lk}, SEED + 40)
+    right = Table.from_arrays(ks, "hg38_r", {"k": rk}, SEED + 41)
+    walls["encrypt_s"] = sync_s(t0)
+    t0 = time.perf_counter()
+    li = SortedIndex.build(ks, left, "k")
+    walls["left_index_build_s"] = sync_s(t0)
+    t0 = time.perf_counter()
+    ri = SortedIndex.build(ks, right, "k")
+    walls["right_index_build_s"] = sync_s(t0)
+    server = QueryServer(ks, left, indexes={"k": li}, batch=BATCH)
+    jid = server.submit_join(join, right, right_indexes={"k": ri})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sm = server.run()[jid]
+        walls["sort_merge_s"] = sync_s(t0)
+    sm_dev = _device_summary(prof, walls["sort_merge_s"])
+    del prof
+    want = np.argwhere(lk[:, None] == rk[None, :])
+    sm_ok = bool(np.array_equal(sm.pairs, want))
+    cl, cr = JOIN_CUT
+    in_cut = (sm.pairs[:, 0] < cl) & (sm.pairs[:, 1] < cr)
+    sm_cut = sm.pairs[in_cut]
+    sm_peak = torch.cuda.max_memory_allocated()
+    index_build_compares = [li.build_compares, ri.build_compares]
+
+    # ---- nested loops on the cut: gadget (shared grid, shards), paper ----
+    lcut = Table.from_ciphertexts("hg38_l_cut", {"k": left.gather(
+        "k", np.arange(cl))}, cl)
+    rcut = Table.from_ciphertexts("hg38_r_cut", {"k": right.gather(
+        "k", np.arange(cr))}, cr)
+    del left, right, li, ri, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_cut = np.argwhere(lk[:cl, None] == rk[None, :cr])
+    nested = QueryServer(ks, lcut, batch=BATCH)
+    j1 = nested.submit_join(join, rcut, strategy="nested")
+    j2 = nested.submit_join(join, rcut, strategy="nested")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nres = nested.run()
+        walls["nested_gadget_s"] = sync_s(t0)
+    nested_dev = _device_summary(prof, walls["nested_gadget_s"])
+    del prof
+    b = nested.batch_log[0]
+    nested_ok = bool(np.array_equal(nres[j1].pairs, want_cut)
+                     and np.array_equal(nres[j2].pairs, want_cut)
+                     and np.array_equal(sm_cut, want_cut))
+    tiles = cl // J._grid_tile(J._resolve_block_pairs(None), cl, cr)
+    t0 = time.perf_counter()
+    sl = db.ShardedTable.from_table(ks, lcut,
+                                    spec=db.ShardSpec.create(SHARDS))
+    sr = db.ShardedTable.from_table(ks, rcut,
+                                    spec=db.ShardSpec.create(SHARDS))
+    sharded = db.execute_join(ks, sl, sr, join, strategy="nested")
+    walls["nested_sharded_s"] = sync_s(t0)
+    del sl, sr
+    sharded_ok = bool(np.array_equal(sharded.pairs, nres[j1].pairs))
+    t0 = time.perf_counter()
+    pl = Table.from_arrays(wks, "hg38_l_cut", {"k": lk[:cl]}, SEED + 42)
+    pr = Table.from_arrays(wks, "hg38_r_cut", {"k": rk[:cr]}, SEED + 43)
+    walls["encrypt_paper_cut_s"] = sync_s(t0)
+    t0 = time.perf_counter()
+    paper = db.execute_join(wks, pl, pr, join, strategy="nested")
+    walls["nested_paper_s"] = sync_s(t0)
+    paper_ok = bool(np.array_equal(paper.pairs, want_cut))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    stop_recording()
+    peak = torch.cuda.max_memory_allocated()
+    path_shapes = check_gadget_shapes(ks, lcut.column("k"), shapes,
+                                      SEED + 46, rate)
+
+    def stats(r):
+        s = r.stats
+        return {"eval_calls": s.eval_calls, "pair_compares": s.pair_compares,
+                "merge_compares": s.merge_compares,
+                "adjacency_compares": s.adjacency_compares,
+                "verify_compares": s.verify_compares,
+                "build_compares": s.build_compares,
+                "join_compares": s.join_compares, "pairs": len(r)}
+    out = {
+        "phase": "join", "profile": PROFILE, "buckets": buckets,
+        "rows": [n_l, n_r], "cut": list(JOIN_CUT),
+        "sort_merge": {"exact": sm_ok, **stats(sm),
+                       "index_build_compares": index_build_compares,
+                       "peak_mem_bytes": sm_peak, "device": sm_dev},
+        "nested_gadget": {"exact": nested_ok, **stats(nres[j1]),
+                          "batch_joins": b.joins,
+                          "grid_evals": b.grid_evals,
+                          "grid_pair_compares": b.pair_compares,
+                          "device": nested_dev},
+        "nested_sharded": {"exact": sharded_ok, **stats(sharded),
+                           "shards": list(sharded.stats.shards)},
+        "nested_paper": {"exact": paper_ok, **stats(paper)},
+        "walls": walls, "launches": launches, "peak_mem_bytes": peak,
+        "gadget_shapes": path_shapes,
+    }
+    emit(out)
+    require(sm_ok, "the sort-merge join's pairs differ from the plaintext")
+    require(nested_ok, "the nested cut's pairs differ (plaintext/sort-merge)")
+    require(b.grid_evals == tiles,
+            f"two joins launched {b.grid_evals} grid tiles, not {tiles}")
+    require(sharded_ok, "the sharded nested join's pairs differ")
+    require(paper_ok, "the paper-mode nested cut's pairs differ")
+    require(path_shapes["equal"], "the gadget Eval != plain at a join path "
+            f"shape: {path_shapes['shapes']}")
+    require(all(launches[k] > 0 for k in JOIN_KERNELS),
+            f"a kernel never launched on the join path: {launches}")
+    return lcut, rcut, pl, pr, out
+
+
+def phase_layouts(ks, wks, lcut, rcut, pl, pr, rate) -> dict:
+    """The join's kernel layouts against their plain versions on the cut
+    tables: the gadget pair-grid tile (the negated right column against
+    T negated left atoms), a tile whose digits are all those of q - 1,
+    and the paper Eval's column form over each side."""
+    import torch
+    from repro_torch.core import ring as R
+    from repro_torch.core import sampling
+    from repro_torch.db import join as J
+    from repro_torch.kernels import cmp_eval as CK
+    from repro_torch.kernels import ops as KO
+
+    params, ring = ks.params, ks.ring
+    K, n, D = params.num_towers, params.n, params.gadget_digits_per_tower
+    lb, qs = params.profile.gadget_log_base, ring.q_arr[:, 0]
+    cl, cr = JOIN_CUT
+    T = J._grid_tile(J._resolve_block_pairs(None), cl, cr)
+    lct, rct = lcut.column("k"), rcut.column("k")
+    grid = KO.PairGrid(ks, lct, rct)
+    lo = cl - T
+    b0, b1 = R.neg(ring, lct.c0[lo:]), R.neg(ring, lct.c1[lo:])
+    zeros = [0] * T
+
+    def ev(kernel, uniq, sel, bnd0, bnd1, rows):
+        args = (uniq.c0, uniq.c1, 0, rows, sel, bnd0, bnd1, ks.cek_rev, qs,
+                params.scale, lb)
+        if kernel:
+            return CK.eval_coeff0_gadget(*args, cek_bytes=ks.cek_rev_bytes)
+        return CK.eval_coeff0_gadget_plain(*args)
+    neg_r = grid.neg_right
+    cases = {}
+    got = ev(True, neg_r, zeros, b0, b1, cr)
+    want = ev(False, neg_r, zeros, b0, b1, cr)
+    cases["pair tile"] = (got, want)
+    # d = l - r = q - 1 on every coefficient: right rows all c, left c - 1
+    gen = sampling.make_generator(SEED + 44, ks.device)
+    c = sampling.uniform_poly(params, gen, (2, 1))
+    rc0, rc1 = c[0].expand(cr, K, n).contiguous(), c[1].expand(
+        cr, K, n).contiguous()
+    q = ring.q_arr
+    top = type(lct)(R.neg(ring, rc0)[None], R.neg(ring, rc1)[None])
+    t0_ = R.neg(ring, ((c[0] - 1) % q).expand(T, K, n).contiguous())
+    t1_ = R.neg(ring, ((c[1] - 1) % q).expand(T, K, n).contiguous())
+    cases["q - 1 digits"] = (ev(True, top, zeros, t0_, t1_, cr),
+                             ev(False, top, zeros, t0_, t1_, cr))
+    pargs = (wks.cek_rev, wks.ring.q_arr[:, 0], wks.params.scale)
+    for name, ct in (("paper column left", pl.column("k")),
+                     ("paper column right", pr.column("k"))):
+        cases[name] = (CK.eval_coeff0_paper(ct.c0, ct.c1, *pargs),
+                       CK.eval_coeff0_paper_plain(ct.c0, ct.c1, *pargs))
+    eq, errs = True, {}
+    torch.cuda.synchronize()
+    for name, (g, w) in cases.items():
+        eq &= torch.equal(g, w)
+        errs[name] = max_abs_err(g, w)
+    grid_eq = bool(torch.equal(grid.tile(lo, T),
+                               R.crt_centered(params, want)))
+    del cases, got
+    pl_ct, pr_ct = pl.column("k"), pr.column("k")
+    out = {
+        "phase": "layouts", "tolerance": 0, "equal": bool(eq and grid_eq),
+        "max_abs_err": max(errs.values()), "cases": errs,
+        "pair_tile": {"layout": "negated right column x negated left atoms",
+                      "atoms": T, "rows": cr,
+                      "ms": time_cuda(lambda: ev(True, neg_r, zeros, b0, b1,
+                                                 cr), 20),
+                      "plain_ms": time_cuda(lambda: ev(False, neg_r, zeros,
+                                                       b0, b1, cr), 1),
+                      "tile_ms": time_cuda(lambda: grid.tile(lo, T), 20),
+                      **eval_bound(T, cr, K, n, D, False, rate)},
+        "paper_column": [{"rows": int(ct.c0.shape[0]),
+                          "ms": time_cuda(lambda: CK.eval_coeff0_paper(
+                              ct.c0, ct.c1, *pargs), 10),
+                          "plain_ms": time_cuda(
+                              lambda: CK.eval_coeff0_paper_plain(
+                                  ct.c0, ct.c1, *pargs), 1),
+                          **paper_bound(int(ct.c0.shape[0]), K, n, False, 0,
+                                        rate)}
+                         for ct in (pl_ct, pr_ct)],
+    }
+    emit(out)
+    require(eq and grid_eq, f"a join layout != plain (|err| {errs})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1020,18 +1596,38 @@ def main() -> int:
     phase_profile(ks, table, reqs, serve)
     phase_index(ks, table, vals)
     keymul = phase_keymul(ks, table, rate)
-    del ks, table, reqs             # free the gadget table for the write path
+    del table, reqs                 # free the gadget table for the write path
     gc.collect()
     torch.cuda.empty_cache()
     wks, wtable, write = phase_write(dev, vals)
     paper = phase_paper(wks, wtable, write, rate)
+    del wtable                      # and the write table for the shard path
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard = phase_shard(ks, vals, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    *cut, join = phase_join(ks, wks, vals, rate)
+    layouts = phase_layouts(ks, wks, *cut, rate)
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           **{k: serve[k] for k in ("correct", "keygen_s", "encrypt_s",
                                    "serve_wall_s", "queries_per_s",
                                    "peak_mem_bytes")},
           "write": {k: write[k] for k in ("inserts_per_s", "exact",
                                           "scan_correct", "walls",
-                                          "peak_mem_bytes")}})
+                                          "peak_mem_bytes")},
+          "shard": {k: shard[k] for k in ("correct", "topk_ok",
+                                          "scan_ratio", "merge_compares",
+                                          "walls", "peak_mem_bytes")},
+          "join": {"walls": join["walls"],
+                   "peak_mem_bytes": join["peak_mem_bytes"],
+                   **{k: join[k]["exact"] for k in (
+                       "sort_merge", "nested_gadget", "nested_sharded",
+                       "nested_paper")}},
+          "layouts_equal": layouts["equal"]})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

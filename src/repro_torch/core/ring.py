@@ -102,9 +102,11 @@ def _shoup_tables(t: NttTables, dev) -> torch.Tensor:
     return shoup_pairs(int64_tensor(tabs, dev), q)
 
 
-def make_ring(params: HadesParams, device="cpu") -> Ring:
+def make_ring(params: HadesParams, device=None) -> Ring:
+    """The ring's tables on `device` (CUDA unless asked otherwise; see
+    `resolve_device`)."""
     t: NttTables = params.ntt_tables()
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return Ring(
         qs=tuple(params.qs),
         n=params.n,

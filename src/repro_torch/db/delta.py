@@ -1,6 +1,6 @@
 """Delta-run compaction: fold pending inserts into base + sorted index.
 
-The port of `repro.db.delta` for single tables.  The write path
+The port of `repro.db.delta`.  The write path
 (`Table.insert`) accumulates new rows in a small pow2-padded delta run
 that every read unions in.  `compact` retires it:
 
@@ -17,12 +17,15 @@ that every read unions in.  `compact` retires it:
      ids do not change.
 
 Tombstones survive compaction: dead rows stay encrypted in place and
-stay masked host-side.  Sharded tables (`_compact_sharded` in the
-reference) wait for the shard slice.
+stay masked host-side.  A `ShardedTable` compacts per shard
+(`_compact_sharded`): each shard's delta run folds onto its base block
+and every `ShardedIndex` merges its per-shard (base run, delta run)
+pairs through the same merge network.
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -35,7 +38,7 @@ from repro_torch.core.keys import KeySet
 from repro_torch.db.executor import fae_comparator
 from repro_torch.db.index import SortedIndex
 from repro_torch.db.shard import merge as M
-from repro_torch.db.table import Table, append_rows
+from repro_torch.db.table import append_rows
 
 
 @dataclasses.dataclass
@@ -95,13 +98,19 @@ def merge_index_runs(ks: KeySet, base: SortedIndex, delta: SortedIndex,
     return merged, compares
 
 
-def compact(ks: KeySet, table: Table,
-            indexes: Optional[Dict[str, SortedIndex]] = None,
+def compact(ks: KeySet, table, indexes: Optional[Dict] = None,
             ) -> CompactionStats:
-    """Fold the pending delta run of `table` into its base and merge it
-    into every index in `indexes` (updated IN PLACE with the merged
-    `SortedIndex` objects).  A no-op (zero stats) when nothing is
-    pending."""
+    """Fold the pending delta run(s) of `table` into its base and merge
+    them into every index in `indexes` (updated IN PLACE with the merged
+    `SortedIndex` / `ShardedIndex` objects).  Accepts a `Table` or a
+    `ShardedTable`; a no-op (zero stats) when nothing is pending."""
+    shard_mod = sys.modules.get("repro_torch.db.shard.table")
+    if shard_mod is not None and isinstance(table, shard_mod.ShardedTable):
+        with obs.span("compact", shards=table.num_shards,
+                      n_delta=table.n_delta):
+            stats = _compact_sharded(ks, table, indexes)
+        obs.absorb_compaction_stats(stats)
+        return stats
     indexes = indexes if indexes is not None else {}
     stats = CompactionStats(n_base=table.n_rows, n_delta=table.n_delta)
     if not table.has_delta:
@@ -123,4 +132,45 @@ def compact(ks: KeySet, table: Table,
         table.delta = None
         table._invalidate()
     obs.absorb_compaction_stats(stats)
+    return stats
+
+
+def _compact_sharded(ks: KeySet, stable, indexes: Optional[Dict],
+                     ) -> CompactionStats:
+    """Per-shard compaction of a `ShardedTable`.
+
+    Every shard folds its own delta run into its base block; if any
+    shard's base + delta overflows the common block, ALL shards re-pad
+    to the next power of two with fresh encryptions of 0 (no row is
+    re-encrypted).  Each `ShardedIndex` merges its per-shard (base run,
+    delta run) pairs through the merge network and is rebuilt as an
+    object from the merged per-shard `SortedIndex`es; no sort is redone."""
+    from repro_torch.db.shard.index import ShardedIndex
+    indexes = indexes if indexes is not None else {}
+    stats = CompactionStats(n_base=stable.n_rows, n_delta=stable.n_delta,
+                            shards=stable.num_shards)
+    if not stable.has_delta:
+        return stats
+    for col in list(indexes):
+        idx = indexes[col]
+        merged_shards = []
+        for s in range(stable.num_shards):
+            base_s = idx.shards[s]
+            didx = stable.delta_index(ks, col, s)
+            if didx is None:
+                merged_shards.append(base_s)
+                continue
+            # per-shard index perms are LOCAL slot ids: delta rows land at
+            # slots base_rows .. base_rows + d - 1 after the fold below
+            merged, compares = merge_index_runs(
+                ks, base_s, didx, id_offset=int(stable.shard_rows[s]))
+            merged_shards.append(merged)
+            stats.merge_compares += compares
+            stats.merge_rounds += 1
+            n_new_s = int(stable.shard_rows[s]) + stable.delta_rows(s)
+            stats.rebuild_compares += C.bitonic_compare_count(n_new_s)
+        indexes[col] = ShardedIndex(col, merged_shards,
+                                    build_compares=idx.build_compares)
+        stats.indexes_merged += 1
+    stable._fold_deltas(ks)
     return stats

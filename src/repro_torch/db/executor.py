@@ -22,6 +22,7 @@ tiles run the kernels' plain versions.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -96,21 +97,26 @@ def dedup_eval(ks: KeySet, uniq: Ciphertext, sel: np.ndarray,
     return R.crt_centered(ks.params, diff)
 
 
-def dedup_atom_columns(table: Table, atoms: List[P.Atom],
+def dedup_atom_columns(table, atoms: List[P.Atom],
                        stack) -> Tuple[Ciphertext, np.ndarray]:
     """Stack each DISTINCT scan column once + the [A] per-atom gather.
 
-    One distinct column is a view (no copy): the served path's batches
-    over one column never duplicate the table."""
+    `stack(column)` is the column's scan ciphertext (`scan_column` on a
+    Table, [W, K, n]; `scan_stack` on a ShardedTable, [S, W, K, n]); the
+    unique axis goes first, or after the shard dim.  One distinct column
+    is a view (no copy): the served batches over one column never
+    duplicate the table."""
     order: Dict[str, int] = {}
     for a in atoms:
         order.setdefault(a.column, len(order))
     cols = [stack(c) for c in order]
+    axis = 0 if cols[0].c0.dim() == 3 else 1
     if len(cols) == 1:
-        uniq = Ciphertext(cols[0].c0[None], cols[0].c1[None])
+        uniq = Ciphertext(cols[0].c0.unsqueeze(axis),
+                          cols[0].c1.unsqueeze(axis))
     else:
-        uniq = Ciphertext(torch.stack([c.c0 for c in cols]),
-                          torch.stack([c.c1 for c in cols]))
+        uniq = Ciphertext(torch.stack([c.c0 for c in cols], dim=axis),
+                          torch.stack([c.c1 for c in cols], dim=axis))
     sel = np.asarray([order[a.column] for a in atoms], np.int64)
     return uniq, sel
 
@@ -330,12 +336,20 @@ def _topk_compares(n: int, k: int) -> int:
     return total
 
 
-def execute(ks: KeySet, table: Table, query, *,
+def execute(ks: KeySet, table, query, *,
             indexes: Optional[Dict[str, SortedIndex]] = None,
             lane_budget: Optional[int] = None) -> QueryResult:
     """Run a Query (or bare predicate / precompiled plan) against a table.
     `lane_budget` caps the fused scan's per-launch eval lanes (None = the
-    shared `kernels.ops` policy default)."""
+    shared `kernels.ops` policy default).  A `ShardedTable` dispatches to
+    `db.shard.executor.execute_sharded` (its indexes are
+    `ShardedIndex`es)."""
+    # a ShardedTable argument implies its module is loaded already
+    shard_mod = sys.modules.get("repro_torch.db.shard.table")
+    if shard_mod is not None and isinstance(table, shard_mod.ShardedTable):
+        from repro_torch.db.shard.executor import execute_sharded
+        return execute_sharded(ks, table, query, indexes=indexes,
+                               lane_budget=lane_budget)
     if isinstance(query, (P.Query, P.Predicate)):
         plan = P.compile_plan(query)
     elif isinstance(query, P.CompiledPlan):

@@ -66,6 +66,11 @@ class SortedIndex:
         return cls(column, sorted_ct, perm.cpu().numpy(),
                    build_compares=C.bitonic_compare_count(table.n_rows))
 
+    def sorted_run(self) -> tuple:
+        """The index as an ascending (ciphertext run, row-id array) pair,
+        which the sort-merge join consumes directly."""
+        return self.sorted_ct, self.perm
+
     # -- search ------------------------------------------------------------
 
     def _lane_taus(self, ks: KeySet, n_lanes: int,

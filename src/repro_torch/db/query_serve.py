@@ -10,7 +10,12 @@ executes against the table in one vectorized pass —
   * every index-eligible leaf joins ONE lane-batched binary search per
     index (2 lanes per Range/Eq);
   * float (CKKS) lanes carry their predicate's decode threshold, so a
-    batch mixing exact and ε-tolerant predicates still fuses.
+    batch mixing exact and ε-tolerant predicates still fuses;
+  * JOINS batch too (`submit_join`): a join's left-side filter leaves
+    bind into the SAME shared scan/index launches as plain queries, and
+    nested-loop pair grids dedupe across the batch — K joins against the
+    same right table and key columns share ONE tiled raw-eval grid, each
+    join applying its own τ/ε and masks host-side.
 
 Per-query combine / order / limit stages then run on each query's own
 mask.
@@ -23,7 +28,6 @@ delta (the shared fused scan widens by the delta block; the lane-batched
 index searches add ONE per-delta-run search per column).  `compact()`
 retires the pending delta between batches (`db.delta.compact`);
 `compact_threshold` triggers it once the delta outgrows the threshold.
-Joins (`submit_join`) arrive with the join slice.
 
 Usage (on the card; `--device cpu` runs the plain path):
   PYTHONPATH=src python -m repro_torch.db.query_serve --dataset hg38 \
@@ -36,6 +40,7 @@ import contextlib
 import dataclasses
 import json
 import time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -45,6 +50,7 @@ from repro_torch.core.ckks import eps_to_tau
 from repro_torch.core.keys import KeySet
 from repro_torch.db import delta as D
 from repro_torch.db import executor as X
+from repro_torch.db import join as J
 from repro_torch.db import plan as P
 from repro_torch.db.index import SortedIndex, _stack_cts
 from repro_torch.db.table import Table, rows_to_mask
@@ -52,14 +58,17 @@ from repro_torch.db.table import Table, rows_to_mask
 
 @dataclasses.dataclass
 class BatchStats:
-    """Shared-launch accounting for one drained batch (the fused Eval and
-    the lane-batched searches are counted ONCE here; per-query shares
-    live on each result's own stats)."""
+    """Shared-launch accounting for one drained batch (the fused Eval, the
+    lane-batched searches and the deduped join grids are counted ONCE
+    here; per-query shares live on each result's own stats)."""
     queries: int = 0
+    joins: int = 0
     eval_calls: int = 0
     scan_compares: int = 0
     index_compares: int = 0
     delta_build_compares: int = 0  # lazy per-delta-run index builds
+    grid_evals: int = 0            # deduped nested-join pair-grid tiles
+    pair_compares: int = 0         # deduped pair-grid lanes
     wall_s: float = 0.0
 
 
@@ -83,6 +92,15 @@ class _QueuedMutation:
     samples: Optional[Dict[str, tuple]] = None
 
 
+@dataclasses.dataclass
+class _QueuedJoin:
+    """A submitted join: the plan plus its right-hand table context."""
+    join: P.Join
+    right: Table
+    right_indexes: Dict[str, SortedIndex]
+    strategy: str
+
+
 class QueryServer:
     """Queue + batch executor over one encrypted table."""
 
@@ -103,6 +121,13 @@ class QueryServer:
         self._next_id = 0
         self.batch_log: List[BatchStats] = []
         self._tenants: Dict[int, str] = {}     # request id -> tenant label
+        # server-scope memo of on-the-fly sort-merge runs: (id(table),
+        # column) -> (weakref to the table, version at build, sorted run).
+        # A hit needs the referent to STILL be the probing table (ids are
+        # recycled) and its version to match (every mutation bumps it);
+        # the weakref's callback evicts the entry when the table dies
+        self._run_cache: Dict[Tuple[int, str],
+                              Tuple["weakref.ref", int, tuple]] = {}
 
     # -- queue -------------------------------------------------------------
 
@@ -121,6 +146,23 @@ class QueryServer:
         if isinstance(query, P.Predicate):
             query = P.Query(where=query)
         return self._enqueue(query, tenant)
+
+    def submit_join(self, join: P.Join, right: Table, *,
+                    right_indexes: Optional[Dict[str, SortedIndex]] = None,
+                    strategy: str = "auto",
+                    tenant: Optional[str] = None) -> int:
+        """Enqueue a Join of the server's table (left side) against
+        `right`; returns a request id resolving to a `JoinResult`.
+
+        The join's LEFT filter leaves fuse into the batch's shared
+        scan/index launches; its nested-loop pair grid dedupes with every
+        other queued join naming the same `right` table and key columns.
+        `right_indexes` serve the right-side filters and (with a left
+        index on the server) enable the sort-merge strategy."""
+        P.compile_join(join)          # validate kind/on shape at submit time
+        return self._enqueue(_QueuedJoin(join, right,
+                                         dict(right_indexes or {}),
+                                         strategy), tenant)
 
     def submit_insert(self, data: Dict[str, np.ndarray], seed: int = 0, *,
                       samples: Optional[Dict[str, tuple]] = None,
@@ -165,18 +207,21 @@ class QueryServer:
         finally:
             self.batch = old
 
-    def _bill_tenant(self, qid: int, stats: X.ExecStats) -> None:
+    def _bill_tenant(self, qid: int, stats) -> None:
         """Per-tenant served-query + compare-lane attribution (counted
         only when the obs layer is enabled)."""
         if not obs.is_enabled():
             return
         tenant = self._tenants.get(qid, "default")
         obs.count("server.queries", 1, tenant=tenant)
-        obs.count("server.compares", stats.filter_compares, tenant=tenant)
+        compares = getattr(stats, "filter_compares",
+                           getattr(stats, "join_compares", 0))
+        obs.count("server.compares", compares, tenant=tenant)
 
     def run(self) -> Dict[int, object]:
         """Drain the queue; returns {request id: result} (a `QueryResult`
-        per query, a `MutationResult` per mutation).  The queue splits
+        per query, a `JoinResult` per join, a `MutationResult` per
+        mutation).  The queue splits
         into maximal same-kind runs in submit order: query runs drain in
         shared-launch batches, mutation runs apply in turn, so reads
         observe exactly the writes submitted before them.  After a
@@ -225,20 +270,37 @@ class QueryServer:
 
     # -- batch execution ---------------------------------------------------
 
-    def _run_batch(self, chunk: List[Tuple[int, P.Query]],
-                   ) -> Dict[int, X.QueryResult]:
+    def _run_batch(self, chunk: List[Tuple[int, object]],
+                   ) -> Dict[int, object]:
         with obs.span("server.batch", size=len(chunk)) as bsp:
             return self._run_batch_traced(chunk, bsp)
 
-    def _run_batch_traced(self, chunk: List[Tuple[int, P.Query]], bsp,
-                          ) -> Dict[int, X.QueryResult]:
+    def _run_batch_traced(self, chunk: List[Tuple[int, object]], bsp,
+                          ) -> Dict[int, object]:
         t0 = time.perf_counter()
         ks, table = self.ks, self.table
         W = table.scan_width
-        plans = [(qid, P.compile_plan(q)) for qid, q in chunk]
-        bstats = BatchStats(queries=len(plans))
+        queries: List[Tuple[int, P.CompiledPlan]] = []
+        joins: List[Tuple[int, P.CompiledJoin, _QueuedJoin]] = []
+        for qid, item in chunk:
+            if isinstance(item, _QueuedJoin):
+                joins.append((qid, P.compile_join(item.join), item))
+            else:
+                queries.append((qid, P.compile_plan(item)))
+        bstats = BatchStats(queries=len(queries), joins=len(joins))
 
-        # partition every plan's leaves into index lanes vs scan atoms
+        # slots: every left-table plan whose leaves ride the shared
+        # launches — plain queries first, then joins' left sub-plans
+        plans: List[Tuple[Optional[int], P.CompiledPlan]] = list(queries)
+        join_slot: List[Optional[int]] = []
+        for _, cj, _ in joins:
+            if cj.left_plan is not None:
+                join_slot.append(len(plans))
+                plans.append((None, cj.left_plan))
+            else:
+                join_slot.append(None)
+
+        # partition every slot's leaves into index lanes vs scan atoms
         scan_atoms: List[P.Atom] = []
         scan_ref: List[Tuple[int, int, int, int]] = []  # (plan#, leaf, start, count)
         lane_cts: Dict[str, list] = {}                   # column -> [ct, ...]
@@ -316,9 +378,12 @@ class QueryServer:
                 qstats[pi].eval_calls = 1     # its share of the fused pass
 
         # per-query combine + order/limit/project over the union slot
-        # space; pads and tombstones drop via slot_valid
-        results: Dict[int, X.QueryResult] = {}
+        # space (join slots resolve in `_run_joins`); pads and tombstones
+        # drop via slot_valid
+        results: Dict[int, object] = {}
         for pi, (qid, plan) in enumerate(plans):
+            if qid is None:
+                continue
             stats = qstats[pi]
             slot_mask = X.combine_tree(plan.tree, leaf_masks[pi], W)
             slot_mask &= table.slot_valid
@@ -331,13 +396,106 @@ class QueryServer:
                 row_ids=row_ids, mask=gmask, columns=columns, stats=stats)
             self._bill_tenant(qid, stats)
 
+        if joins:
+            with obs.span("server.joins", joins=len(joins)):
+                jres = self._run_joins(joins, join_slot, leaf_masks,
+                                       qstats, bstats)
+            for qid, r in jres.items():
+                self._bill_tenant(qid, r.stats)
+            results.update(jres)
         bstats.wall_s = time.perf_counter() - t0
-        bsp.set(queries=bstats.queries, eval_calls=bstats.eval_calls)
+        bsp.set(queries=bstats.queries, joins=bstats.joins,
+                eval_calls=bstats.eval_calls)
         obs.absorb_batch_stats(bstats)
         if obs.is_enabled() and table.n_rows:
             obs.observe("pad.waste", table.n_padded / table.n_rows)
         self.batch_log.append(bstats)
         return results
+
+    def _side_run(self, side_table: Table, col: str,
+                  index: Optional[SortedIndex], jstats: J.JoinStats):
+        """A sort-merge side's ascending run: its index's, or one built on
+        the fly and memoized in `_run_cache` until the table mutates or
+        dies."""
+        if index is not None:
+            return index.sorted_run()
+        key = (id(side_table), col)
+        hit = self._run_cache.get(key)
+        if (hit is not None and hit[0]() is side_table
+                and hit[1] == side_table.version):
+            return hit[2]
+        run = J._sorted_run(self.ks, side_table, col, None, jstats)
+
+        def evict(ref, key=key, cache=self._run_cache):
+            ent = cache.get(key)
+            if ent is not None and ent[0] is ref:
+                del cache[key]
+        self._run_cache[key] = (weakref.ref(side_table, evict),
+                                side_table.version, run)
+        return run
+
+    def _run_joins(self, joins, join_slot, leaf_masks, qstats,
+                   bstats: BatchStats) -> Dict[int, J.JoinResult]:
+        """Resolve the batch's joins after the shared leaf launches.
+
+        Nested-loop pair grids dedupe by (right table, key columns): each
+        distinct triple costs ONE tiled raw-eval grid for the batch, every
+        join decoding it under its own τ/ε and masks.  Sort-merge runs
+        come from the sides' indexes, or from the server-scope run cache
+        (`_side_run`)."""
+        ks, table = self.ks, self.table
+        grids: Dict[Tuple[int, str, str], np.ndarray] = {}
+        out: Dict[int, J.JoinResult] = {}
+        for (qid, cj, item), slot in zip(joins, join_slot):
+            lcol, rcol = cj.on_columns
+            right = item.right
+            jstats = J.JoinStats()
+            jstats.strategy = J.resolve_strategy(
+                item.strategy, lcol in self.indexes,
+                rcol in item.right_indexes)
+            lmask = J._side_mask(
+                ks, table, cj.left_plan, indexes=self.indexes,
+                stats=jstats.left,
+                leaf_masks=None if slot is None else leaf_masks[slot])
+            if slot is not None:      # its leaves rode the shared launches
+                jstats.left.scan_leaves += qstats[slot].scan_leaves
+                jstats.left.indexed_leaves += qstats[slot].indexed_leaves
+                jstats.left.scan_compares += qstats[slot].scan_compares
+                jstats.left.index_compares += qstats[slot].index_compares
+            rmask = J._side_mask(ks, right, cj.right_plan,
+                                 indexes=item.right_indexes,
+                                 stats=jstats.right)
+            tau = J.join_tau(ks, item.join)
+            if jstats.strategy == "nested":
+                key = (id(right), lcol, rcol)
+                if key not in grids:
+                    scratch = J.JoinStats()
+                    grids[key] = J.pair_eval_values(
+                        ks, table.column(lcol), right.column(rcol),
+                        block_pairs=self.lane_budget, stats=scratch)
+                    bstats.grid_evals += scratch.eval_calls
+                    bstats.pair_compares += scratch.pair_compares
+                jstats.pair_compares += table.n_padded * right.n_padded
+                jstats.eval_calls = 1      # its share of the deduped grid
+                pairs = J.pairs_from_grid(grids[key], tau, lmask, rmask)
+            else:
+                lrun = self._side_run(table, lcol, self.indexes.get(lcol),
+                                      jstats)
+                rrun_ct, rrun_ids = self._side_run(
+                    right, rcol, item.right_indexes.get(rcol), jstats)
+                pairs = J.merge_runs_to_pairs(
+                    ks, [lrun, (rrun_ct, rrun_ids + table.n_padded)],
+                    table.n_padded, tau,
+                    verify=J.needs_verify(ks, item.join),
+                    gather_left=lambda rows: table.gather(lcol, rows),
+                    gather_right=lambda rows, r=right: r.gather(rcol, rows),
+                    left_mask=lmask, right_mask=rmask, stats=jstats)
+            columns = J._project(cj, table.gather, right.gather, pairs)
+            out[qid] = J.JoinResult(
+                pairs=pairs, left_mask=lmask[:table.n_rows],
+                right_mask=rmask[:right.n_rows], columns=columns,
+                stats=jstats)
+        return out
 
 
 # ---------------------------------------------------------------------------

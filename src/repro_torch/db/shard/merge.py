@@ -1,18 +1,25 @@
-"""Encrypted merge networks over equal-length sorted runs.
+"""Cross-shard encrypted merge networks (sort / top-k over shard blocks).
 
-The part of `repro.db.shard.merge` that delta compaction needs:
+The port of `repro.db.shard.merge`.  A sharded `OrderBy`/`TopK` never
+gathers all rows to one sort: each shard first resolves its own
+candidates with a LOCAL bitonic network (all shards riding the same
+batched Eval stages over the flattened `[S·M, ...]` stack), then a
+log2 S-depth cross-shard merge combines the per-shard results:
 
-  * `pad_shard_blocks` stacks (ciphertext run, global ids) lists into one
-    flattened `[num_blocks·block]` column, padding each list with
-    encrypted sentinels (id -1; stripping is by id, never by value);
-  * `merge_sorted_runs` merges equal-length ascending runs pairwise
-    (half-cleaner + bitonic merge, L·(1 + log2 L) compares per pair of
-    runs of length L), every stage one batched compare-exchange.
+  * top-k:  per-shard partial bitonic top-k down to one descending
+    kp-block per shard, then the max-merge TOURNAMENT continues across
+    shard boundaries — (S-1)·(kp + kp/2·log2 kp) merge compares,
+    independent of n;
+  * sort:   per-shard full bitonic sort, then log2 S pairwise sorted-run
+    merges (half-cleaner + bitonic merge, L·(1 + log2 L) compares per
+    pair of runs of length L).
 
-Both run on `core.compare`'s compare-exchange machinery, so stage
-semantics (FAE tie outcomes, id-based sentinel stripping) are those of
-`encrypted_sort`.  The per-shard sorts, the top-k tournament and the
-shard-level entry points wait for the shard slice.
+Delta compaction and the sort-merge join use `pad_shard_blocks` and
+`merge_sorted_runs` directly.  Everything runs on `core.compare`'s
+compare-exchange machinery, so stage semantics (FAE tie outcomes,
+id-based sentinel stripping) are those of `encrypted_sort`.  Each
+function updates the caller's c0/c1/ids in place where it can and
+returns them with its compare count(s).
 """
 from __future__ import annotations
 
@@ -41,6 +48,27 @@ def _obs_stage(site: str, glo) -> None:
     obs.jit_launch(site, (int(glo.shape[0]),))
     obs.count("eval.launches")
     obs.count("eval.lanes", int(glo.shape[0]))
+
+
+def shard_block_sort(ks: KeySet, cmp: Callable, c0: torch.Tensor,
+                     c1: torch.Tensor, ids: torch.Tensor, *, block: int,
+                     descending: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                int]:
+    """Sort each contiguous `block`-sized run independently; every stage
+    of the tiled bitonic network is ONE batched Eval across all runs."""
+    n = c0.shape[0]
+    if n % block:
+        raise ValueError(f"{n} rows are not whole blocks of {block}")
+    compares = 0
+    with obs.span("merge.block_sort", rows=int(n), block=int(block)):
+        for lo, hi, asc in C._bitonic_pairs(block):
+            flags = ~asc if descending else asc
+            glo, ghi, gasc = C._block_pairs(n // block, block, lo, hi, flags)
+            _obs_stage("merge.block_sort", glo)
+            C._compare_swap(ks, cmp, c0, c1, ids, glo, ghi, gasc)
+            compares += int(glo.shape[0])
+    return c0, c1, ids, compares
 
 
 def merge_sorted_runs(ks: KeySet, cmp: Callable, c0: torch.Tensor,
@@ -118,3 +146,96 @@ def pad_shard_blocks(ks: KeySet, per_shard: list, *, block: int,
         ids.append(np.concatenate([np.asarray(gids, np.int64),
                                    np.full(block - m, -1, np.int64)]))
     return Ciphertext(c0, c1), np.concatenate(ids)
+
+
+def topk_tournament(ks: KeySet, cmp: Callable, c0: torch.Tensor,
+                    c1: torch.Tensor, ids: torch.Tensor, *, kp: int,
+                    stop_blocks: int = 1
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               int]:
+    """`encrypted_topk`'s max-merge tournament over descending kp-blocks,
+    run until `stop_blocks` blocks survive.
+
+    With stop_blocks = S it is the per-shard phase (blocks pair only
+    within their shard: shard regions are contiguous with a power-of-two
+    block count); continuing with stop_blocks = 1 is the cross-shard
+    merge phase."""
+    n_live = c0.shape[0]
+    if n_live % kp:
+        raise ValueError(f"{n_live} rows are not whole blocks of {kp}")
+    compares = 0
+    while n_live > stop_blocks * kp:
+        with obs.span("merge.topk_round", live=int(n_live), kp=int(kp)):
+            blocks = n_live // kp
+            j = np.arange(blocks // 2)
+            i = np.arange(kp)
+            lo_idx = ((2 * j * kp)[:, None] + i[None, :]).ravel()
+            hi_idx = (((2 * j + 1) * kp)[:, None]
+                      + (kp - 1 - i)[None, :]).ravel()
+            _obs_stage("merge.topk_round", lo_idx)
+            C._compare_swap(ks, cmp, c0, c1, ids, lo_idx, hi_idx,
+                            np.zeros(lo_idx.shape[0], bool))
+            compares += int(lo_idx.shape[0])
+            keep = torch.as_tensor(lo_idx, device=c0.device)
+            c0, c1, ids = c0[keep], c1[keep], ids[keep]
+            n_live //= 2
+            stride = kp // 2
+            while stride >= 1:
+                within = np.arange(kp)
+                p = within[(within & stride) == 0]
+                glo, ghi, gasc = C._block_pairs(n_live // kp, kp, p,
+                                                p + stride,
+                                                np.zeros(p.shape[0], bool))
+                _obs_stage("merge.topk_round", glo)
+                C._compare_swap(ks, cmp, c0, c1, ids, glo, ghi, gasc)
+                compares += int(glo.shape[0])
+                stride //= 2
+    return c0, c1, ids, compares
+
+
+def sharded_topk(ks: KeySet, cmp: Callable, ct: Ciphertext,
+                 ids: np.ndarray, *, num_blocks: int,
+                 k: int) -> Tuple[np.ndarray, int, int]:
+    """Global descending top-k over per-shard candidate blocks.
+
+    ct/ids: the flattened `[num_blocks·M]` stack of `pad_shard_blocks` (M
+    a power-of-two multiple of kp = next_pow2(k)); it is sorted in place.
+    Returns (the top-k global ids — -1 if a sentinel tied its way in,
+    which the caller re-resolves through the tie-robust sort path —,
+    per-shard-phase compares, cross-shard merge compares)."""
+    n = ct.c0.shape[0]
+    M = n // num_blocks
+    kp = C.next_pow2(k)
+    if M % kp or M != C.next_pow2(M):
+        raise ValueError(f"block {M} is not a power-of-two multiple of {kp}")
+    c0, c1 = ct.c0, ct.c1
+    gid = torch.as_tensor(ids, device=c0.device)
+    # per-shard phase: descending kp-block sorts, then the tournament down
+    # to ONE block per shard, every stage batched across all shards
+    c0, c1, gid, n_sort = shard_block_sort(ks, cmp, c0, c1, gid, block=kp,
+                                           descending=True)
+    c0, c1, gid, n_tour = topk_tournament(ks, cmp, c0, c1, gid, kp=kp,
+                                          stop_blocks=num_blocks)
+    # cross-shard merge: the same tournament, now pairing across shards
+    c0, c1, gid, n_merge = topk_tournament(ks, cmp, c0, c1, gid, kp=kp,
+                                           stop_blocks=1)
+    return gid[:k].cpu().numpy(), n_sort + n_tour, n_merge
+
+
+def sharded_sort(ks: KeySet, cmp: Callable, ct: Ciphertext,
+                 ids: np.ndarray, *, num_blocks: int
+                 ) -> Tuple[np.ndarray, int, int]:
+    """Globally ascending row ids via per-shard sorts + log-depth merge.
+
+    ct/ids: the flattened `[num_blocks·M]` stack of `pad_shard_blocks`
+    with ascending sentinels (+max_operand//2); it is sorted in place.
+    Returns (real row ids ascending by value — sentinels stripped BY ID —,
+    per-shard-phase compares, cross-shard merge compares)."""
+    n = ct.c0.shape[0]
+    M = n // num_blocks
+    c0, c1 = ct.c0, ct.c1
+    gid = torch.as_tensor(ids, device=c0.device)
+    c0, c1, gid, n_sort = shard_block_sort(ks, cmp, c0, c1, gid, block=M)
+    c0, c1, gid, n_merge = merge_sorted_runs(ks, cmp, c0, c1, gid, run=M)
+    gid = gid.cpu().numpy()
+    return gid[gid >= 0], n_sort, n_merge

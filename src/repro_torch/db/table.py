@@ -337,6 +337,11 @@ class Table:
 
     # -- access ------------------------------------------------------------
 
+    def column(self, name: str) -> Ciphertext:
+        """The named column's stacked BASE ciphertext rows (see
+        `scan_column` for the base ∪ delta view)."""
+        return self.columns[name]
+
     def gather(self, name: str, rows: Iterable[int]) -> Ciphertext:
         """Ciphertext rows of `name` at GLOBAL row ids — ids past
         `n_rows` resolve into the delta run."""

@@ -1,6 +1,6 @@
 """Public entry points over the kernels: the lane-budget policy, the
-bit-reversed-order NTT, and the kernel-backed raw Eval over arbitrary
-batches in both modes.
+bit-reversed-order NTT, the kernel-backed raw Eval over arbitrary
+batches in both modes, and the join's pair grid (`PairGrid`).
 
 Dispatch is by device, with no fallback: a CUDA tensor reaches a kernel
 or raises, and only a CPU tensor runs a plain version.
@@ -25,7 +25,8 @@ from repro_torch.kernels import ntt as NK
 
 # Default ceiling on eval LANES per launch (one lane = one [K, n]
 # polynomial compare), the reference's value.  Scan tiles
-# (`db.executor.fused_eval`) resolve through this policy.
+# (`db.executor.fused_eval`) resolve through this policy; join pair
+# grids (`db.join.pair_eval_values`) too, with their own default.
 DEFAULT_LANE_BUDGET = 1 << 17
 
 _LANE_BUDGET_OVERRIDE: int | None = None
@@ -133,3 +134,54 @@ def broadcast_eval_values(ks: KeySet, ct0: Ciphertext,
     v = eval_values(ks, Ciphertext(flat(ct0.c0), flat(ct0.c1)),
                     Ciphertext(flat(ct1.c0), flat(ct1.c1)))
     return v.reshape(batch)
+
+
+# ---------------------------------------------------------------------------
+# the join's pair grid: [t, R] tiles of left rows against every right row
+# ---------------------------------------------------------------------------
+
+class PairGrid:
+    """Raw eval values eval(left[l], right[r]) for tiles of left rows
+    against all R right rows, without materializing the broadcast grid.
+
+    Gadget mode maps a tile onto the Eval kernel's scan form with the
+    right side as the column and the tile's left rows as the atoms.  The
+    gadget Eval is not antisymmetric (each digit's key row carries its
+    own noise), so eval(l, r) is the kernel's column - bound only with
+    both sides negated mod q: (-r) - (-l) = l - r residue for residue,
+    the same digits.  The negated right column is made once per grid,
+    each tile negates its t left rows; a tile is ONE kernel launch over
+    R rows x t atoms, every 16-row block of the kernel full.
+
+    Paper mode uses the Eval's linearity mod q (the executor's
+    `dedup_eval` factoring): each side is evaluated once in column form
+    (`paper_coeff0`, one launch per side), and a tile is the coefficient-0
+    difference of its t left values against the R right values.
+
+    Both are bit-identical to the reference's Eval of every (l, r) pair.
+    """
+
+    def __init__(self, ks: KeySet, left: Ciphertext, right: Ciphertext):
+        self.ks = ks
+        self.left = left
+        self.n_right = int(right.c0.shape[0])
+        if ks.params.mode == "paper":
+            self.f_left = paper_coeff0(ks, left)            # [L, K]
+            self.f_right = paper_coeff0(ks, right)          # [R, K]
+        else:
+            ring = ks.ring
+            self.neg_right = Ciphertext(R.neg(ring, right.c0)[None],
+                                        R.neg(ring, right.c1)[None])
+
+    def tile(self, lo: int, t: int) -> torch.Tensor:
+        """Centered raw values [t, R] of left rows [lo, lo + t)."""
+        ks = self.ks
+        if ks.params.mode == "paper":
+            diff = (self.f_left[lo:lo + t, None] - self.f_right[None]
+                    ) % ks.ring.q_arr[:, 0]
+            return R.crt_centered(ks.params, diff)
+        ring = ks.ring
+        b0 = R.neg(ring, self.left.c0[lo:lo + t])
+        b1 = R.neg(ring, self.left.c1[lo:lo + t])
+        return gadget_tile_values(ks, self.neg_right, np.zeros(t, np.int64),
+                                  b0, b1, 0, self.n_right)

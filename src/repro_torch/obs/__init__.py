@@ -10,11 +10,12 @@ one-bool-check no-op unless enabled (`with obs.tracing() as tr:` or
 from repro_torch.obs.jitwatch import launch as jit_launch
 from repro_torch.obs.metrics import (REGISTRY, absorb_batch_stats,
                                      absorb_compaction_stats,
-                                     absorb_exec_stats, count, observe)
+                                     absorb_exec_stats, absorb_join_stats,
+                                     count, observe)
 from repro_torch.obs.trace import TRACER, is_enabled, span, tracing
 
 __all__ = [
     "jit_launch", "REGISTRY", "absorb_batch_stats",
-    "absorb_compaction_stats", "absorb_exec_stats",
+    "absorb_compaction_stats", "absorb_exec_stats", "absorb_join_stats",
     "count", "observe", "TRACER", "is_enabled", "span", "tracing",
 ]

@@ -129,7 +129,7 @@ def observe(name: str, v: float, **labels) -> None:
 # registry supersedes the scattered counters as the aggregate view.
 
 def absorb_exec_stats(stats, **labels) -> None:
-    """Fold one `ExecStats` into the registry."""
+    """Fold one `ExecStats`/`ShardedExecStats` into the registry."""
     if not _trace._enabled:
         return
     count("exec.eval_calls", stats.eval_calls, **labels)
@@ -138,10 +138,12 @@ def absorb_exec_stats(stats, **labels) -> None:
     count("exec.order_compares", stats.order_compares, **labels)
     count("exec.scan_leaves", stats.scan_leaves, **labels)
     count("exec.indexed_leaves", stats.indexed_leaves, **labels)
+    if getattr(stats, "merge_compares", 0):
+        count("exec.merge_compares", stats.merge_compares, **labels)
 
 
 def absorb_batch_stats(bstats, **labels) -> None:
-    """Fold one `BatchStats` into the registry."""
+    """Fold one `BatchStats`/`ShardedBatchStats` into the registry."""
     if not _trace._enabled:
         return
     count("server.batches", 1, **labels)
@@ -150,6 +152,15 @@ def absorb_batch_stats(bstats, **labels) -> None:
     count("server.batch_scan_compares", bstats.scan_compares, **labels)
     count("server.batch_index_compares", bstats.index_compares, **labels)
     observe("server.batch_wall_s", bstats.wall_s, **labels)
+
+
+def absorb_join_stats(jstats, **labels) -> None:
+    """Fold one `JoinStats` into the registry."""
+    if not _trace._enabled:
+        return
+    count("join.executions", 1, strategy=jstats.strategy, **labels)
+    count("join.eval_calls", jstats.eval_calls, **labels)
+    count("join.compares", jstats.join_compares, **labels)
 
 
 def absorb_compaction_stats(cstats, **labels) -> None:

@@ -29,7 +29,7 @@ from repro_torch.db.table import Table as TorchTable
 from repro_torch.db.table import column_seed, pad_rows_pow2, rows_to_mask
 
 from conftest import get_scheme_ks
-from tests.test_torch_core import ct_to_torch, ks_to_torch, n_
+from test_torch_core import ct_to_torch, ks_to_torch, n_
 
 jax.config.update("jax_enable_x64", True)
 

@@ -42,7 +42,7 @@ from repro_torch.kernels import ntt as TNK
 from repro_torch.kernels import ops as TKO
 
 from conftest import get_scheme_ks
-from tests.test_torch_core import (ct_to_torch, ks_to_torch, n_,
+from test_torch_core import (ct_to_torch, ks_to_torch, n_,
                                    sweep_params, t_)
 
 jax.config.update("jax_enable_x64", True)
@@ -612,7 +612,11 @@ def test_port_imports_neither_jax_nor_reference():
     import repro_torch
     mods = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
-    assert "repro_torch.db.query_serve" in mods
+    assert {"repro_torch.db.query_serve", "repro_torch.db.join",
+            "repro_torch.db.shard.spec", "repro_torch.db.shard.table",
+            "repro_torch.db.shard.executor", "repro_torch.db.shard.index",
+            "repro_torch.db.shard.join",
+            "repro_torch.db.shard.serve"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"
@@ -641,9 +645,9 @@ def test_cuda_gadget_eval_kernel_equals_plain(cuda, bfv_keys):
                             cek_gadget=tks.cek_gadget, device=cuda)
     n = gks.params.n
     qs = gks.ring.q_arr[:, 0]
-    uniq = torch.stack([torch.randint(0, int(q), (2, 300, n),
+    uniq = torch.stack([torch.randint(0, int(q), (2, 2, 300, n),
                                       device=cuda) for q in qs.tolist()],
-                       dim=-2)
+                       dim=-2)                       # c0/c1 x 2 columns
     bnd = torch.stack([torch.randint(0, int(q), (2, 3, n), device=cuda)
                        for q in qs.tolist()], dim=-2)
     lanes = torch.stack([torch.randint(0, int(q), (2, 3, 40, n),

@@ -39,7 +39,7 @@ from repro_torch.db import plan as TP
 from repro_torch.db.executor import fae_comparator
 from repro_torch.db.shard import merge as TM
 
-from tests.test_torch_core import ct_to_torch, n_, ref_encrypt_samples
+from test_torch_core import ct_to_torch, n_, ref_encrypt_samples
 
 jax.config.update("jax_enable_x64", True)
 
