@@ -75,12 +75,43 @@ Phases, each printing one JSON line:
                Eval layouts (gadget: the negated right column against
                negated left atoms, with a q - 1 digit tile; paper: the
                column form of both sides) against their plain versions.
- 11. card    — the card's name and power limit (nvidia-smi), then one
-               {"kernels": [...]} line with every kernel's numbers.
+ 11. loop    — after the earlier tables are freed, the serving-loop
+               benchmark's traffic (benchmarks/serve_loop.py::run at
+               rows = 65,536): two tenants with their own paper-mode
+               keys and ACLed indexed tables of 57,344 rows, alice's hot
+               write table, one ServeLoop; warm-up, isolated points, the
+               steady mix (points with deadlines, bulk ranges, a nested
+               join, inserts with union probes), a poisoned plan in a
+               shared drain, a round in the always-on mode with two
+               client threads, the overload.  Every answer against the
+               plaintext; point p99 mixed ≤ 2 × isolated, shed 0, no new
+               launch signature in the steady mix, explicit REJECTED and
+               SHED.  Then the paper Eval and both multiplies against
+               their plain versions at every shape the loop launched
+               them at, on rows of each tenant's own column, launch
+               counts reconciled.
+ 12. lm      — smollm-360m at full width in bfloat16 (seeded weights):
+               8 requests in batches of 4, prompt 32, 16 greedy tokens;
+               one batch's decode steps under torch.profiler (device
+               busy time, kernels a step, the host's top operations);
+               float32 on the card against the CPU (relative error ≤
+               2e-5, and the same prefill with TF32 matmuls, the
+               control, above it), decode_step against forward (≤
+               2e-2), the share of bfloat16 greedy tokens equal to
+               float32's.  Then an
+               encrypted top-8 over one request's scores at 4,096
+               candidate tokens under paper-ckks gadget keys (n =
+               16,384), each pick within the CKKS tolerance of the
+               plaintext; the gadget Eval and both multiplies against
+               their plain versions at every shape the bridge launched
+               them at, launch counts reconciled.
+ 13. card    — the card's name and power limit (nvidia-smi), then one
+               {"kernels": [...]} line with every kernel's numbers (the
+               n = 16,384 shapes as rows named with the profile).
 
 Launch counts are zeroed just before each path (serve, keymul, write,
-shard, join) and read just after; each path's kernels must have
-launched.  The last
+shard, join, loop, the lm bridge) and read just after; each path's
+kernels must have launched.  The last
 line is the device record.  Any failure raises: the script then exits
 non-zero without it, as it does with no CUDA device or without the
 repository beside it.  It imports nothing of JAX or of `repro`.
@@ -111,6 +142,25 @@ SHARD_TOPK = 8              # the sharded benchmark's k
 SHARD_INSERT = 431
 JOIN_CUT = (8192, 4096)     # nested-loop cut: left x right rows
 SEED = 0
+# the serving-loop benchmark (benchmarks/serve_loop.py) at the pow2 pad
+# full hg38 takes: 57,344 live rows a tenant
+LOOP_PROFILE = "paper-bfv"
+LOOP_ROWS = 65536
+LOOP_ROUNDS = 4
+LOOP_INSERT_CHUNK = 8
+LOOP_COMPACT_AT = 32
+# the LM serve path (the reference CLI's defaults) and its top-k bridge
+LM_ARCH = "smollm_360m"
+LM_REDUCED = False
+LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_GEN = 8, 4, 32, 16
+LM_DECODE_CHECK = 4
+# float32 prefill, card vs CPU, / max |logit|: about 10x the sound
+# reading on an H100 and below the same prefill with TF32 matmuls
+LM_CPU_REL_TOL = 2e-5
+LM_DECODE_TOL = 2e-2        # tests/test_serve.py's decode vs forward
+LM_PROFILE = "paper-ckks"
+LM_CANDIDATES = 4096
+LM_TOPK = 8
 
 # H100 SXM published memory rate (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -140,6 +190,12 @@ WRITE_KERNELS = ("eval_coeff0_paper", "negacyclic_mul_ntt",
 SHARD_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt")
 JOIN_KERNELS = ("eval_coeff0_gadget", "eval_coeff0_paper",
                 "negacyclic_mul_ntt")
+# the loop runs paper keygen, encryption and the paper Eval; the LM
+# bridge paper-ckks gadget keygen, encryption and the gadget Eval
+LOOP_KERNELS = ("eval_coeff0_paper", "negacyclic_mul_ntt", "negacyclic_mul",
+                "ntt_br_fwd")
+LM_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt", "negacyclic_mul",
+              "ntt_br_fwd")
 
 
 def emit(obj) -> None:
@@ -961,14 +1017,14 @@ def record_gadget_shapes() -> tuple:
     return shapes, stop
 
 
-def check_gadget_shapes(ks, source, shapes: dict, seed: int,
-                        rate) -> dict:
+def check_gadget_shapes(ks, source, shapes: dict, seed: int, rate) -> dict:
     """The gadget Eval kernel against its plain version at every shape a
     path gave it (`record_gadget_shapes`), tolerance 0: the column stack
     and the bounds are rows of the path's own column `source` ([N, K, n])
     drawn by a seeded generator, at the path's first row offset and
     atom selection.  Each shape is timed by CUDA events beside its bound
-    (one column tile per unique column the selection names)."""
+    (one column tile per unique column the selection names); the plain
+    version too at the most-called shape, which comes first."""
     import torch
     from repro_torch.core import sampling
     from repro_torch.kernels import cmp_eval as CK
@@ -994,9 +1050,11 @@ def check_gadget_shapes(ks, source, shapes: dict, seed: int,
         def kernel():
             return CK.eval_coeff0_gadget(u0, u1, off, rows, sel, b0, b1,
                                          *args, cek_bytes=ks.cek_rev_bytes)
-        got = kernel()
-        want = CK.eval_coeff0_gadget_plain(u0, u1, off, rows, sel, b0, b1,
-                                           *args)
+
+        def plain():
+            return CK.eval_coeff0_gadget_plain(u0, u1, off, rows, sel, b0,
+                                               b1, *args)
+        got, want = kernel(), plain()
         torch.cuda.synchronize()
         same = bool(torch.equal(got, want))
         eq &= same
@@ -1011,7 +1069,104 @@ def check_gadget_shapes(ks, source, shapes: dict, seed: int,
                     **_bound(sum(b["bytes"] for b in bounds),
                              sum(b["ops"] for b in bounds),
                              INT8_TC_OPS_PER_S)})
+        if len(out) == 1:
+            out[0]["plain_ms"] = time_cuda(plain, 1)
         del u0, u1, b0, b1, got, want
+    torch.cuda.empty_cache()
+    return {"tolerance": 0, "equal": eq, "shapes": out}
+
+
+def _lane_stride(t):
+    """The batch stride in elements the paper Eval kernel reads t [B, K,
+    n] with (`cmp_eval._rows`): 0 for one polynomial, K n for a copy."""
+    if t is None:
+        return None
+    if t.shape[0] == 1:
+        return 0
+    if t.stride()[1:] != (t.shape[2], 1):
+        return t.shape[1] * t.shape[2]
+    return t.stride(0)
+
+
+def record_paper_shapes() -> tuple:
+    """Record every call of the paper Eval's wrapper until `stop()`
+    (every module reaches the kernel through the attribute of
+    `cmp_eval`): shapes maps (id of the caller's cek_rev, lanes, rows of
+    b (0 in the column form), the lane strides of a0, a1, b0, b1) to
+    [calls, cek_rev, qs, scale].  A call counts once the kernel has
+    returned, under a lock: the serving loop's threads share the
+    wrapper."""
+    import threading
+
+    from repro_torch.kernels import cmp_eval as CK
+    inner, shapes, lock = CK.eval_coeff0_paper, {}, threading.Lock()
+
+    def recorded(a0, a1, cek_rev, qs, scale, b0=None, b1=None):
+        res = inner(a0, a1, cek_rev, qs, scale, b0, b1)
+        key = (id(cek_rev), a1.shape[0], 0 if b1 is None else b1.shape[0],
+               tuple(_lane_stride(t) for t in (a0, a1, b0, b1)))
+        with lock:
+            shapes.setdefault(key, [0, cek_rev, qs, scale])[0] += int(
+                a1.shape[0] > 0)
+        return res
+
+    def stop():
+        CK.eval_coeff0_paper = inner
+    CK.eval_coeff0_paper = recorded
+    return shapes, stop
+
+
+def check_paper_shapes(sources: dict, shapes: dict, seed: int,
+                       rate) -> dict:
+    """The paper Eval kernel against its plain version at every shape a
+    path gave it (`record_paper_shapes`), tolerance 0, on rows of the
+    column of the tenant whose key made the call (`sources`: id of a
+    KeySet's cek_rev -> (tenant, column [N, K, n])): a column-form pass
+    of contiguous lanes on the column's own first rows, every other
+    operand on rows drawn by a seeded generator and laid out at the
+    recorded lane stride.  Each shape is timed by CUDA events beside its
+    bound; the plain version too at the most-called shape, which comes
+    first."""
+    import torch
+    from repro_torch.core import sampling
+    from repro_torch.kernels import cmp_eval as CK
+
+    dev = next(iter(sources.values()))[1].c0.device
+    gen = sampling.make_generator(seed, dev)
+    eq, out = True, []
+    for (key, B, b_rows, strides), (calls, cek, qs, scale) in sorted(
+            shapes.items(), key=lambda kv: -kv[1][0]):
+        tenant, col = sources[key]
+        K, n = cek.shape
+        kn, N = K * n, col.c0.shape[0]
+
+        def laid(rows, s0, s1):
+            if s0 == s1 == kn and rows <= N and b_rows == 0:
+                return col.c0[:rows], col.c1[:rows]
+            span = -(-((rows - 1) * max(s0, s1) + kn) // kn)
+            pick = torch.randint(0, N, (span,), generator=gen, device=dev)
+            return tuple(c[pick].as_strided((rows, K, n), (s, n, 1))
+                         for c, s in ((col.c0, s0), (col.c1, s1)))
+        a0, a1 = laid(B, *strides[:2])
+        b0, b1 = laid(b_rows, *strides[2:]) if b_rows else (None, None)
+
+        def kernel():
+            return CK.eval_coeff0_paper(a0, a1, cek, qs, scale, b0, b1)
+
+        def plain():
+            return CK.eval_coeff0_paper_plain(a0, a1, cek, qs, scale, b0, b1)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        eq &= same
+        out.append({"tenant": tenant, "lanes": B, "b_rows": b_rows,
+                    "strides": list(strides), "calls": calls,
+                    "equal": same, "max_abs_err": max_abs_err(got, want),
+                    "ms": time_cuda(kernel, 3),
+                    **paper_bound(B, K, n, b_rows > 0, b_rows, rate)})
+        if len(out) == 1:
+            out[0]["plain_ms"] = time_cuda(plain, 1)
+        del a0, a1, b0, b1, got, want
     torch.cuda.empty_cache()
     return {"tolerance": 0, "equal": eq, "shapes": out}
 
@@ -1569,6 +1724,703 @@ def phase_layouts(ks, wks, lcut, rcut, pl, pr, rate) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving loop under its benchmark's traffic (benchmarks/serve_loop.py)
+# ---------------------------------------------------------------------------
+
+def _pcts(lats) -> tuple:
+    """(p50, p99) in milliseconds, numpy's linear percentiles as the
+    serving-loop benchmark reports them."""
+    return (float(np.percentile(lats, 50)) * 1e3,
+            float(np.percentile(lats, 99)) * 1e3)
+
+
+def _loop_tenant(dev, name, seed, n_rows, n_padded, with_right=False):
+    """One tenant's world as the benchmark's `_mk_tenant`: its own paper
+    KeySet, its own indexed table (and a 64-row right table), a probe
+    pool of 16 values and 8 range bounds.  Each probe carries its truth,
+    and the join its pairs, computed here: no check runs inside the
+    loop's timed windows."""
+    import torch
+    from repro_torch.core import encrypt as E
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.params import make_params
+    from repro_torch.db.index import SortedIndex
+    from repro_torch.db.table import Table
+
+    ks = keygen(make_params(LOOP_PROFILE, mode="paper"), seed, device=dev,
+                paper_ecek_weight=0)
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, ks.params.max_operand // 2,
+                        n_rows).astype(np.int64)
+    t0 = time.perf_counter()
+    table = Table.from_arrays(ks, f"{name}_t", {"v": vals}, seed + 1,
+                              n_padded=n_padded)
+    torch.cuda.synchronize()
+    encrypt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = SortedIndex.build(ks, table, "v")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    right = pairs = None
+    if with_right:
+        rvals = vals[:64].copy()
+        right = Table.from_arrays(ks, f"{name}_r", {"v": rvals}, seed + 2)
+        pairs = np.argwhere(vals[:, None] == rvals[None, :])
+    pool = [(E.encrypt(ks, int(v), seed + 10 + i), np.nonzero(vals == v)[0])
+            for i, v in enumerate(rng.choice(vals, 16, replace=True))]
+    bounds = []
+    for i in range(8):
+        lo, hi = (int(v) for v in np.sort(rng.choice(vals, 2,
+                                                     replace=False)))
+        bounds.append((E.encrypt(ks, lo, seed + 100 + i),
+                       E.encrypt(ks, hi, seed + 200 + i),
+                       np.nonzero((vals >= lo) & (vals <= hi))[0]))
+    return dict(name=name, ks=ks, rng=rng, vals=vals, table=table,
+                index=index, right=right, pairs=pairs, pool=pool,
+                bounds=bounds, encrypt_s=encrypt_s, index_build_s=build_s,
+                index_sorted=bool(np.array_equal(vals[index.perm],
+                                                  np.sort(vals))))
+
+
+def phase_loop(dev, rate) -> dict:
+    """`benchmarks/serve_loop.py::run` at LOOP_ROWS = 65,536 (its rows
+    argument; 57,344 live rows a tenant), every answer held against the
+    plaintext: two tenants with their own paper keys and ACLed indexed
+    tables behind one ServeLoop, alice's hot write table, then warm-up,
+    isolated points, the steady mix and the overload, as the benchmark
+    runs them; then a poisoned plan in a shared drain and a round in the
+    always-on mode with two client threads.  Launch counts are zeroed
+    just before the path and read just after; the paper Eval and both
+    multiplies are then held against their plain versions at every shape
+    the path gave them, and their calls against the launch counts."""
+    import threading
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import encrypt as E
+    from repro_torch.db import plan as P
+    from repro_torch.db.index import SortedIndex
+    from repro_torch.db.query_serve import QueryServer
+    from repro_torch.db.serve_loop import (OK, REJECTED, SHED,
+                                           AdmissionPolicy, ServeLoop)
+    from repro_torch.db.table import Table
+    from repro_torch.kernels import _build
+
+    rows = LOOP_ROWS
+    n_rows = rows - max(rows // 8, 4 * LOOP_COMPACT_AT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    pshapes, pstop = record_paper_shapes()
+    mshapes, mstop = record_mul_shapes()
+    obs.enable()                 # launch accounting + serve.* counters
+    obs.REGISTRY.reset()
+    obs.jitwatch.reset()
+    t_start = time.perf_counter()
+    alice = _loop_tenant(dev, "alice", 11, n_rows, rows)
+    bob = _loop_tenant(dev, "bob", 23, n_rows, rows, with_right=True)
+    tenants = (alice, bob)
+    loop = ServeLoop(batch=8)
+    for t in tenants:
+        loop.register(t["name"] + "_t", QueryServer(
+            t["ks"], t["table"], indexes={"v": t["index"]}, batch=8,
+            compact_threshold=LOOP_COMPACT_AT), tenants=(t["name"],))
+    aks = alice["ks"]
+    lim = aks.params.max_operand // 2
+    wvals = alice["rng"].integers(0, lim, 2 * LOOP_COMPACT_AT).astype(
+        np.int64)
+    wtable = Table.from_arrays(aks, "alice_w", {"v": wvals}, 31,
+                               n_padded=8 * LOOP_COMPACT_AT)
+    wserver = QueryServer(aks, wtable,
+                          indexes={"v": SortedIndex.build(aks, wtable, "v")},
+                          batch=8, compact_threshold=LOOP_COMPACT_AT)
+    loop.register("alice_w", wserver, tenants=("alice",))
+    wprobe = E.encrypt(aks, int(wvals[0]), 32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_start
+
+    expect = {}                  # ticket -> check(result) -> bool
+    w_all = [wvals]              # alice_w's rows in global-id order
+
+    def on_host(res):
+        return all(isinstance(getattr(res, f, np.zeros(0)), np.ndarray)
+                   for f in ("row_ids", "mask", "pairs"))
+
+    def same(ids):
+        return lambda r: np.array_equal(np.sort(r.row_ids), ids)
+
+    def point_wave(t, n, deadline_s=None):
+        dl = None if deadline_s is None else time.monotonic() + deadline_s
+        out = []
+        for i in range(n):
+            ct, truth = t["pool"][i % len(t["pool"])]
+            tk = loop.submit(t["name"], t["name"] + "_t", P.Eq("v", ct),
+                             deadline=dl)
+            expect[tk] = same(truth)
+            out.append(tk)
+        return out
+
+    def bulk_wave(t, n):
+        out = []
+        for i in range(n):
+            lo, hi, truth = t["bounds"][i % len(t["bounds"])]
+            tk = loop.submit(t["name"], t["name"] + "_t",
+                             P.Range("v", lo, hi), klass="bulk")
+            expect[tk] = same(truth)
+            out.append(tk)
+        return out
+
+    def insert_chunk(i):
+        data = alice["rng"].integers(0, lim, LOOP_INSERT_CHUNK).astype(
+            np.int64)
+        start = sum(len(c) for c in w_all)
+        w_all.append(data)
+        tk = loop.submit_insert("alice", "alice_w", {"v": data}, 7000 + i)
+        expect[tk] = lambda r, s=start: np.array_equal(
+            r.row_ids, np.arange(s, s + LOOP_INSERT_CHUNK))
+
+    def union_probe():
+        tk = loop.submit("alice", "alice_w", P.Eq("v", wprobe))
+        truth = np.nonzero(np.concatenate(w_all) == wvals[0])[0]
+        expect[tk] = same(truth)
+        return tk
+
+    def join_one(t):
+        tk = loop.submit_join(t["name"], t["name"] + "_t",
+                              P.Join(None, None, on="v"), t["right"],
+                              strategy="nested")
+        expect[tk] = lambda r: np.array_equal(
+            r.pairs[np.lexsort(r.pairs.T[::-1])], t["pairs"])
+
+    bad = []
+
+    def drain():
+        res = loop.run_until_idle()
+        for tk, r in res.items():
+            if tk not in expect:
+                continue
+            check = expect.pop(tk)
+            if r.status == OK and not (on_host(r.result)
+                                       and check(r.result)):
+                bad.append((tk, r.klass, "wrong answer"))
+            elif r.status not in (OK, REJECTED, SHED):
+                bad.append((tk, r.klass, r.status, r.error))
+            loop.forget(tk)
+        return res
+
+    def lat(res, tickets):
+        return [res[t].latency_s for t in tickets if res[t].status == OK]
+
+    walls = {}
+    t0 = time.perf_counter()
+    # ---- warm-up: every pow2 bucket, the join grid, one delta cycle ------
+    for n in (8, 4, 2, 1):
+        point_wave(alice, n)
+        point_wave(bob, n)
+        drain()
+    for n in (4, 2, 1):
+        bulk_wave(alice, n)
+        bulk_wave(bob, n)
+        drain()
+    join_one(bob)
+    drain()
+    for i in range(LOOP_COMPACT_AT // LOOP_INSERT_CHUNK):
+        insert_chunk(i)
+        union_probe()
+        drain()
+    compactions = len(wserver.compaction_log)
+    wserver.compact_threshold = 1 << 30
+    max_chunks = LOOP_COMPACT_AT // LOOP_INSERT_CHUNK
+
+    def flush_writes(i):
+        wserver.compact_threshold = 1
+        insert_chunk(i)
+        drain()
+        wserver.compact_threshold = 1 << 30
+    walls["warmup_s"] = time.perf_counter() - t0
+
+    # ---- isolated points (+ the writes, as the benchmark) ---------------
+    t0 = time.perf_counter()
+    iso_lat, chunks = [], 0
+    for r in range(LOOP_ROUNDS):
+        if chunks < max_chunks:
+            insert_chunk(50 + r)
+            chunks += 1
+        tks = point_wave(alice, 8) + point_wave(bob, 8)
+        iso_lat += lat(drain(), tks)
+    iso = _pcts(iso_lat)
+    flush_writes(90)
+    walls["isolated_s"] = time.perf_counter() - t0
+
+    # ---- steady mix ------------------------------------------------------
+    retr0 = obs.bench_fields()["jit_retraces"]
+    sub0, served0, shed0 = (loop.stats.submitted, loop.stats.served,
+                            loop.stats.shed)
+    mixed_point, mixed_bulk, union_lat, chunks = [], [], [], 0
+    t0 = time.perf_counter()
+    for r in range(LOOP_ROUNDS):
+        ptks = point_wave(alice, 8, 600.0) + point_wave(bob, 8, 600.0)
+        btks = bulk_wave(alice, 4) + bulk_wave(bob, 4)
+        join_one(bob)
+        utks = []
+        if chunks < max_chunks:
+            insert_chunk(100 + r)
+            utks.append(union_probe())
+            chunks += 1
+        res = drain()
+        mixed_point += lat(res, ptks)
+        mixed_bulk += lat(res, btks)
+        union_lat += lat(res, utks)
+    steady_s = time.perf_counter() - t0
+    served = loop.stats.served - served0
+    shed_rate = (loop.stats.shed - shed0) / max(
+        1, loop.stats.submitted - sub0)
+    retrace_delta = obs.bench_fields()["jit_retraces"] - retr0
+    signatures = obs.jit_signatures()
+    mix, blk = _pcts(mixed_point), _pcts(mixed_bulk)
+    uni = _pcts(union_lat) if union_lat else (None, None)
+    ratio = mix[1] / iso[1]
+
+    # ---- a poisoned plan sharing a drain with three good requests -------
+    poison = []
+    for i in range(3):
+        bulk_wave(alice, 1)
+        if i == 1:
+            poison.append(loop.submit("alice", "alice_t",
+                                      P.Eq("nope", alice["pool"][0][0]),
+                                      klass="bulk"))
+    res = drain()
+    poison_ok = (res[poison[0]].status == "FAILED"
+                 and "nope" in res[poison[0]].error)
+    shapes_fault = loop.batch_shapes[-5:]
+
+    # ---- the always-on mode: a daemon pump, two client threads ----------
+    threaded = {}
+
+    def client(t, seed):
+        vals = t["vals"]
+        for i, v in enumerate(t["rng"].choice(vals, 4)):
+            ct = E.encrypt(t["ks"], int(v), seed + i)
+            tk = loop.submit(t["name"], t["name"] + "_t", P.Eq("v", ct))
+            threaded[tk] = np.nonzero(vals == v)[0]
+    t0 = time.perf_counter()
+    loop.start(interval_s=0.001)
+    try:
+        threads = [threading.Thread(target=client, args=(t, 9000 + 10 * k))
+                   for k, t in enumerate(tenants)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        stop_at = time.monotonic() + 300.0
+        while (any(not loop.response(tk).done for tk in threaded)
+               and time.monotonic() < stop_at):
+            time.sleep(0.005)
+    finally:
+        loop.stop()
+    walls["threaded_s"] = time.perf_counter() - t0
+    threaded_ok = all(
+        loop.response(tk).status == OK
+        and on_host(loop.response(tk).result)
+        and np.array_equal(np.sort(loop.response(tk).result.row_ids), want)
+        for tk, want in threaded.items()) and loop._thread is None
+    stats = dict(vars(loop.stats))
+    launches = dict(_build.LAUNCHES)
+    pstop()
+    mstop()
+
+    # ---- overload: admission control rejects and sheds explicitly -------
+    tight = ServeLoop(policy=AdmissionPolicy(tenant_queue_cap=4), batch=8)
+    tight.register("alice_t", QueryServer(
+        aks, alice["table"], indexes={"v": alice["index"]}, batch=8),
+        tenants=("alice",))
+    late = tight.submit("alice", "alice_t",
+                        P.Eq("v", alice["pool"][0][0]),
+                        deadline=time.monotonic() - 1.0)
+    burst = [tight.submit("alice", "alice_t",
+                          P.Eq("v", alice["pool"][i % 16][0]))
+             for i in range(8)]
+    tres = tight.run_until_idle()
+    rejected = sum(tres[t].status == REJECTED for t in burst)
+    overload_ok = (rejected == 5 and tres[late].status == SHED
+                   and all(tres[t].status == OK and np.array_equal(
+                       np.sort(tres[t].result.row_ids),
+                       alice["pool"][i % 16][1])
+                       for i, t in enumerate(burst)
+                       if tres[t].status != REJECTED))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    obs.disable()
+
+    # ---- each kernel at every shape the path gave it, on tenants' rows ---
+    sources = {id(t["ks"].cek_rev): (t["name"], t["table"].columns["v"])
+               for t in tenants}
+    paper = check_paper_shapes(sources, pshapes, SEED + 50, rate)
+    muls = check_mul_shapes(aks, mshapes, SEED + 51, rate)
+    m_calls = {k: sum(s["calls"] for s in muls["shapes"] if s["kind"] == k)
+               for k in ("key", "var")}
+    reconciled = (sum(s["calls"] for s in paper["shapes"])
+                  == launches["eval_coeff0_paper"]
+                  and m_calls["key"] == launches["negacyclic_mul_ntt"]
+                  and m_calls["var"] == launches["negacyclic_mul"])
+    out = {
+        "phase": "loop", "profile": LOOP_PROFILE, "mode": "paper",
+        "rows_arg": rows, "rows": n_rows, "rounds": LOOP_ROUNDS,
+        "index_build_s": [t["index_build_s"] for t in tenants],
+        "encrypt_s": [t["encrypt_s"] for t in tenants],
+        "index_sorted": all(t["index_sorted"] for t in tenants),
+        "setup_s": setup_s, "walls": walls,
+        "point_isolated_ms": {"p50": iso[0], "p99": iso[1],
+                              "n": len(iso_lat)},
+        "point_mixed_ms": {"p50": mix[0], "p99": mix[1],
+                           "n": len(mixed_point)},
+        "p99_vs_isolated": ratio,
+        "bulk_mixed_ms": {"p50": blk[0], "p99": blk[1],
+                          "n": len(mixed_bulk)},
+        "union_read_ms": {"p50": uni[0], "p99": uni[1],
+                          "n": len(union_lat)},
+        "steady_s": steady_s, "steady_qps": served / steady_s,
+        "shed_rate": shed_rate, "jit_retraces_delta": retrace_delta,
+        "launch_signatures": {k: len(v) for k, v in signatures.items()},
+        "write_chunks": chunks, "warmup_compactions": compactions,
+        "exact": not bad, "wrong": bad[:5],
+        "poisoned_failed_alone": poison_ok, "fault_batches": shapes_fault,
+        "threaded_exact": threaded_ok, "threaded_requests": len(threaded),
+        "overload": {"rejected": rejected,
+                     "late": tres[late].status, "ok": overload_ok},
+        "loop_stats": stats, "launches": launches, "peak_mem_bytes": peak,
+        "launches_reconciled": reconciled, "paper_shapes": paper,
+        "mul_shapes": muls,
+    }
+    emit(out)
+    require(out["index_sorted"], "a tenant's index is not sorted")
+    require(not bad, f"loop answers diverged from the plaintext: {bad[:5]}")
+    require(poison_ok, "the poisoned plan did not fail alone")
+    require(stats["failed"] == 1, f"failed {stats['failed']} != 1 poisoned")
+    require(stats["served"] == stats["admitted"] - stats["shed"] - 1,
+            f"served {stats['served']} != every other request: {stats}")
+    require(stats["shed"] == 0 and stats["rejected"] == 0,
+            f"the light-load loop shed or rejected: {stats}")
+    require(ratio <= 2.0, f"point p99 {ratio:.2f}x its isolated p99")
+    require(shed_rate == 0.0, f"shed under light load: {shed_rate}")
+    require(retrace_delta == 0,
+            f"{retrace_delta} new launch signatures in the steady mix: "
+            f"{signatures}")
+    require(threaded_ok, "the always-on round answered wrong")
+    require(overload_ok, f"overload: {out['overload']}")
+    require(paper["equal"] and muls["equal"],
+            "a kernel != plain at a shape of the loop path")
+    require(reconciled, f"launches {launches} != the recorded calls")
+    require(all(launches[k] > 0 for k in LOOP_KERNELS),
+            f"a kernel never launched on the loop path: {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the LM serve path at full width, then the encrypted top-k over its scores
+# ---------------------------------------------------------------------------
+
+def record_mul_shapes() -> tuple:
+    """Record every call of the two multiply wrappers until `stop()`:
+    shapes maps ("key", a's shape, id of the key transform) or ("var",
+    a's shape, b's shape) to [calls, the key transform and its pairs].
+    A call counts once the kernel has returned, under a lock (the serving
+    loop's client threads encrypt while its pump runs)."""
+    import threading
+
+    from repro_torch.kernels import ntt as NK
+    inner_ntt, inner_var, shapes, lock = (NK.negacyclic_mul_ntt,
+                                          NK.negacyclic_mul, {},
+                                          threading.Lock())
+
+    def key_mul(a, b_br, ring, b_shoup=None):
+        res = inner_ntt(a, b_br, ring, b_shoup)
+        with lock:
+            ent = shapes.setdefault(("key", tuple(a.shape), id(b_br)),
+                                    [0, b_br, b_shoup])
+            ent[0] += int(a.numel() > 0)
+        return res
+
+    def var_mul(a, b, ring):
+        res = inner_var(a, b, ring)
+        with lock:
+            ent = shapes.setdefault(("var", tuple(a.shape), tuple(b.shape)),
+                                    [0, None, None])
+            ent[0] += int(a.numel() > 0 and b.numel() > 0)
+        return res
+
+    def stop():
+        NK.negacyclic_mul_ntt, NK.negacyclic_mul = inner_ntt, inner_var
+    NK.negacyclic_mul_ntt, NK.negacyclic_mul = key_mul, var_mul
+    return shapes, stop
+
+
+def check_mul_shapes(ks, shapes: dict, seed: int, rate) -> dict:
+    """Both multiplies against their plain versions at every shape a path
+    gave them (`record_mul_shapes`), tolerance 0, on uniform operands of
+    the recorded shapes (the key multiply against the path's own key
+    transform); each timed by CUDA events beside its bound."""
+    import torch
+    from repro_torch.core import sampling
+    from repro_torch.kernels import ntt as NK
+
+    params, ring = ks.params, ks.ring
+    K, n = params.num_towers, params.n
+    gen = sampling.make_generator(seed, ks.device)
+    eq, out = True, []
+    for (kind, a_shape, b), (calls, br, pairs) in shapes.items():
+        a = sampling.uniform_poly(params, gen, a_shape[:-2])
+        rows = int(np.prod(a_shape[:-2]))
+        if kind == "key":
+            def kernel():
+                return NK.negacyclic_mul_ntt(a, br, ring, pairs)
+
+            def plain():
+                return NK.negacyclic_mul_ntt_plain(a, br, ring)
+            bound = mul_bound(rows, K, n, 1, rate, key_ntt=True)
+        else:
+            bb = sampling.uniform_poly(params, gen, b[:-2])
+
+            def kernel():
+                return NK.negacyclic_mul(a, bb, ring)
+
+            def plain():
+                return NK.negacyclic_mul_plain(a, bb, ring)
+            bound = mul_bound(rows, K, n, int(np.prod(b[:-2])), rate,
+                              key_ntt=False)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        eq &= same
+        out.append({"kind": kind, "shape": list(a_shape), "calls": calls,
+                    "equal": same, "max_abs_err": max_abs_err(got, want),
+                    "ms": time_cuda(kernel, 5),
+                    "plain_ms": time_cuda(plain, 1), **bound})
+        del a, got, want
+    torch.cuda.empty_cache()
+    return {"tolerance": 0, "equal": eq, "shapes": out}
+
+
+def phase_lm(dev, rate) -> dict:
+    """The LM serve path at LM_ARCH's full width (bfloat16, seeded random
+    weights): 8 requests in batches of 4, prompt 32, 16 greedy tokens
+    (`launch/serve.serve_requests`).  Checks on the card: float32 prefill
+    against the port's CPU float32 run, decode_step against forward over
+    the grown sequence, the share of bfloat16 greedy tokens equal to the
+    float32 ones.  Then `examples/secure_topk_serving.py` at full size:
+    one request's last-token logits over LM_CANDIDATES token ids,
+    encrypted under LM_PROFILE gadget keys, `encrypted_topk` k = 8, each
+    pick within the CKKS tolerance of the plaintext k-th score; the
+    gadget Eval and both multiplies held against their plain versions at
+    every shape the bridge launched them at."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import compare as C
+    from repro_torch.core import encrypt as E
+    from repro_torch.core.ckks import equality_tolerance
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.params import make_params
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import serve as SV
+    from repro_torch.models import transformer as T
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = (configs.get_reduced if LM_REDUCED else configs.get_config)(
+        LM_ARCH)
+    f32 = dataclasses.replace(cfg, param_dtype="float32", dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(np.prod(a.shape)) for a in _leaves(params))
+    rng = np.random.default_rng(SEED + 41)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+
+    # ---- serving: warm-up, then the measured pass ------------------------
+    serve_requests(cfg, params, prompts[:LM_BATCH], batch=LM_BATCH, gen=2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out16 = serve_requests(cfg, params, prompts, batch=LM_BATCH,
+                           gen=LM_GEN)
+    wall = time.perf_counter() - t0
+    lm_peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(out16["logits"].float()).all())
+    steps = (LM_REQUESTS // LM_BATCH) * (LM_GEN - 1)
+    step_ms = out16["decode_s"] / steps * 1e3
+
+    # ---- one batch's decode steps again, under torch.profiler -----------
+    logits, cache = SV.prefill(cfg, params, {"tokens": torch.as_tensor(
+        prompts[:LM_BATCH], dtype=torch.int32, device=dev)},
+        T_max=LM_PROMPT + LM_GEN)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_GEN - 1):
+            logits, cache = SV.decode_step(cfg, params, cache, tok)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    dec_dev = _device_summary(prof, prof_wall, top=8)
+    host_ops = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)
+    busy_ms = (None if dec_dev["busy_s"] is None
+               else dec_dev["busy_s"] / (LM_GEN - 1) * 1e3)
+    decode_trace = {
+        "steps": LM_GEN - 1, "wall_s": prof_wall,
+        "device_busy_ms_per_step": busy_ms,
+        "kernels_per_step": dec_dev["events"] / (LM_GEN - 1),
+        "unprofiled_step_ms": step_ms,
+        "busy_share_of_unprofiled_step": None if busy_ms is None
+        else busy_ms / step_ms, **dec_dev,
+        "host_ms_by_op": {e.key[:60]: {"count": e.count,
+                                       "self_ms": e.self_cpu_time_total / 1e3}
+                          for e in host_ops[:8]}}
+    del logits, cache, tok, prof
+
+    # ---- float32: the card against the CPU, decode against forward -------
+    p32 = T.map_params(lambda a: a.float(), params)
+    toks = torch.as_tensor(prompts[:LM_BATCH], dtype=torch.int32)
+    got, _ = SV.prefill(f32, p32, {"tokens": toks.to(dev)})
+    # the control: the same prefill with TF32 matmuls must fail the limit
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32, _ = SV.prefill(f32, p32, {"tokens": toks.to(dev)})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    cpu32 = T.map_params(lambda a: a.cpu(), p32)
+    want, _ = SV.prefill(f32, cpu32, {"tokens": toks})
+    del cpu32
+    cpu_err = float((got.cpu() - want).abs().max())
+    cpu_rel = cpu_err / float(want.abs().max())
+    tf32_rel = float((tf32.cpu() - want).abs().max()) / float(
+        want.abs().max())
+    del tf32
+    logits, cache = SV.prefill(f32, p32, {"tokens": toks.to(dev)},
+                               T_max=LM_PROMPT + LM_DECODE_CHECK)
+    grown, dec_errs = toks.to(dev), []
+    for _ in range(LM_DECODE_CHECK):
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        grown = torch.cat([grown, nxt[:, None]], 1)
+        logits, cache = SV.decode_step(f32, p32, cache, nxt)
+        full = T.forward(f32, p32, {"tokens": grown})[:, -1]
+        dec_errs.append(float((full - logits).abs().max()))
+    out32 = serve_requests(f32, p32, prompts, batch=LM_BATCH, gen=LM_GEN)
+    greedy_share = float(np.mean(out32["tokens"] == out16["tokens"]))
+    del p32, cache, logits, full, got, want, out32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the bridge: encrypted top-k over one request's scores -----------
+    scores_all = SV.prefill(cfg, params, {"tokens": toks[:1].to(dev)})[0]
+    cand = rng.choice(cfg.vocab_size, LM_CANDIDATES, replace=False)
+    scores = scores_all[0].double().cpu().numpy()[cand]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    hp = make_params(LM_PROFILE, mode="gadget")
+    tol = equality_tolerance(hp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    gshapes, gstop = record_gadget_shapes()
+    mshapes, mstop = record_mul_shapes()
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        ks = keygen(hp, SEED + 42, device=dev)
+        torch.cuda.synchronize()
+        walls["keygen_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        enc = E.encrypt(ks, torch.as_tensor(scores, device=dev), SEED + 43)
+        torch.cuda.synchronize()
+        walls["encrypt_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, top = C.encrypted_topk(ks, enc, LM_TOPK)
+        top = top.cpu().numpy()
+        walls["topk_s"] = time.perf_counter() - t0
+    finally:
+        gstop()
+        mstop()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    kth = float(np.sort(scores)[-LM_TOPK])
+    topk_ok = bool(len(set(top.tolist())) == LM_TOPK
+                   and np.all(scores[top] >= kth - tol))
+    exact = set(np.argsort(scores)[-LM_TOPK:].tolist())
+    gadget = check_gadget_shapes(ks, enc, gshapes, SEED + 44, rate)
+    muls = check_mul_shapes(ks, mshapes, SEED + 45, rate)
+    g_calls = sum(s["calls"] * s["launches_per_call"]
+                  for s in gadget["shapes"])
+    m_calls = {k: sum(s["calls"] for s in muls["shapes"] if s["kind"] == k)
+               for k in ("key", "var")}
+    reconciled = (g_calls == launches["eval_coeff0_gadget"]
+                  and m_calls["key"] == launches["negacyclic_mul_ntt"]
+                  and m_calls["var"] == launches["negacyclic_mul"])
+    del enc, ks
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {
+        "phase": "lm", "arch": cfg.name, "dtype": cfg.dtype,
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": n_params, "init_s": init_s,
+        "requests": LM_REQUESTS, "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "gen": LM_GEN, "prefill_s": out16["prefill_s"],
+        "decode_s": out16["decode_s"], "wall_s": wall,
+        "tokens_per_s": LM_REQUESTS * LM_GEN / wall,
+        "decode_tokens_per_s": LM_REQUESTS * (LM_GEN - 1)
+        / out16["decode_s"],
+        "lm_peak_mem_bytes": lm_peak, "finite": finite,
+        "f32_card_vs_cpu": {"max_abs_err": cpu_err, "rel_err": cpu_rel,
+                            "tolerance_rel": LM_CPU_REL_TOL,
+                            "tf32_control_rel_err": tf32_rel},
+        "decode_step_ms": step_ms, "decode_trace": decode_trace,
+        "f32_decode_vs_forward": {"max_abs_err": dec_errs,
+                                  "tolerance_abs": LM_DECODE_TOL},
+        "bf16_greedy_equal_share": greedy_share,
+        "bridge": {"profile": LM_PROFILE, "candidates": LM_CANDIDATES,
+                   "k": LM_TOPK, "ciphertext_bytes": 2 * 8 * LM_CANDIDATES
+                   * hp.num_towers * hp.n, "tolerance": tol,
+                   "topk_ok": topk_ok, "kth_score": kth,
+                   "picked_scores": scores[top].tolist(),
+                   "exact_overlap": len(exact & set(top.tolist())),
+                   "walls": walls, "peak_mem_bytes": peak},
+        "launches": launches, "launches_reconciled": reconciled,
+        "gadget_shapes": gadget, "mul_shapes": muls,
+    }
+    emit(out)
+    require(finite, "non-finite logits")
+    require(cpu_rel <= LM_CPU_REL_TOL,
+            f"float32 card vs CPU: relative error {cpu_rel}")
+    require(tf32_rel > LM_CPU_REL_TOL,
+            f"the TF32 control passes the float32 limit: {tf32_rel}")
+    require(decode_trace["events"] > 0, "the decode trace saw no kernel")
+    require(max(dec_errs) <= LM_DECODE_TOL,
+            f"decode_step vs forward: {dec_errs}")
+    require(topk_ok, f"encrypted top-{LM_TOPK} below the plaintext bound")
+    require(gadget["equal"] and muls["equal"],
+            "a kernel != plain at a paper-ckks shape")
+    require(reconciled, f"launches {launches} != the recorded calls")
+    require(all(launches[k] > 0 for k in LM_KERNELS),
+            f"a kernel never launched on the bridge: {launches}")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     try:
         import torch
@@ -1609,9 +2461,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     *cut, join = phase_join(ks, wks, vals, rate)
     layouts = phase_layouts(ks, wks, *cut, rate)
-    del cut
+    del cut, ks, wks
     gc.collect()
     torch.cuda.empty_cache()
+    loop = phase_loop(dev, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = phase_lm(dev, rate)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           **{k: serve[k] for k in ("correct", "keygen_s", "encrypt_s",
                                    "serve_wall_s", "queries_per_s",
@@ -1627,7 +2483,26 @@ def main() -> int:
                    **{k: join[k]["exact"] for k in (
                        "sort_merge", "nested_gadget", "nested_sharded",
                        "nested_paper")}},
-          "layouts_equal": layouts["equal"]})
+          "layouts_equal": layouts["equal"],
+          "loop": {k: loop[k] for k in (
+              "exact", "point_isolated_ms", "point_mixed_ms",
+              "p99_vs_isolated", "bulk_mixed_ms", "union_read_ms",
+              "steady_qps", "shed_rate", "jit_retraces_delta",
+              "threaded_exact", "overload", "index_build_s",
+              "peak_mem_bytes", "launches_reconciled")},
+          "lm": {"tokens_per_s": lm["tokens_per_s"],
+                 "prefill_s": lm["prefill_s"], "decode_s": lm["decode_s"],
+                 "f32_rel_err": lm["f32_card_vs_cpu"]["rel_err"],
+                 "tf32_control_rel_err": lm["f32_card_vs_cpu"][
+                     "tf32_control_rel_err"],
+                 "decode_busy_share": lm["decode_trace"]["busy_share"],
+                 "decode_err": max(lm["f32_decode_vs_forward"][
+                     "max_abs_err"]),
+                 "bf16_greedy_equal_share": lm["bf16_greedy_equal_share"],
+                 "topk_ok": lm["bridge"]["topk_ok"],
+                 "walls": lm["bridge"]["walls"],
+                 "ckks_shapes_equal": lm["gadget_shapes"]["equal"]
+                 and lm["mul_shapes"]["equal"]}})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1645,6 +2520,16 @@ def main() -> int:
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": None}
+
+    def ckks_row(name, source, replaces, checked, kind=None):
+        """A kernel at LM_PROFILE: its most-called shape on the bridge
+        whose plain version was timed."""
+        shapes = [s for s in checked["shapes"]
+                  if kind is None or s["kind"] == kind]
+        top = max((s for s in shapes if "plain_ms" in s),
+                  key=lambda s: s["calls"])
+        return row(f"{name}@{LM_PROFILE}", source, replaces, lm, name,
+                   max(s["max_abs_err"] for s in shapes), top)
     emit({"kernels": [
         row("eval_coeff0_gadget", "cmp_eval.cu",
             "src/repro/kernels/cmp_eval.py:48", serve, "eval_coeff0_gadget",
@@ -1660,6 +2545,12 @@ def main() -> int:
             "ntt_br_fwd", keymul["max_abs_err"], keymul["fwd"]),
         row("ntt_br_inv", "ntt.cu", "src/repro/kernels/ntt.py:75", keymul,
             "ntt_br_inv", keymul["max_abs_err"], keymul["inv"]),
+        ckks_row("eval_coeff0_gadget", "cmp_eval.cu",
+                 "src/repro/kernels/cmp_eval.py:48", lm["gadget_shapes"]),
+        ckks_row("negacyclic_mul_ntt", "ntt.cu",
+                 "src/repro/kernels/ntt.py:81", lm["mul_shapes"], "key"),
+        ckks_row("negacyclic_mul", "ntt.cu", "src/repro/kernels/ntt.py:81",
+                 lm["mul_shapes"], "var"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,10 @@
     QueryServer  — K client queries (and joins) against one table in one
                    fused pass, with inserts/deletes/updates on the queue
     compact      — fold a table's pending delta run into base + indexes
+    ServeLoop    — always-on multi-tenant loop: admission control,
+                   two-class deadline scheduling, pow2 batch buckets,
+                   write barriers and per-request fault isolation over
+                   any number of servers
 
 Writes (`Table.insert/delete/update`) land in a small delta run and as
 host-side tombstones; every read answers over base ∪ delta, and
@@ -17,8 +21,7 @@ host-side tombstones; every read answers over base ∪ delta, and
 Sharded variants (`repro_torch.db.shard`): ShardSpec / ShardedTable /
 ShardedIndex / ShardedQueryServer partition rows into logical shards on
 one card, with cross-shard merge stages; `execute`, `execute_join` and
-`compact` dispatch automatically.  The serving loop of `repro.db` is
-not ported yet.
+`compact` dispatch automatically.
 """
 from repro_torch.core.ckks import eps_to_tau, equality_tolerance  # noqa: F401
 from repro_torch.core.compare import (  # noqa: F401
@@ -69,14 +72,20 @@ _SHARD_EXPORTS = ("ShardSpec", "ShardedTable", "ShardedIndex",
 
 _SERVE_EXPORTS = ("QueryServer", "BatchStats", "MutationResult")
 
+_LOOP_EXPORTS = ("ServeLoop", "AdmissionPolicy", "Response", "LoopStats")
+
 
 def __getattr__(name):
-    # lazy: keeps `python -m repro_torch.db.query_serve` free of the
-    # runpy double-import warning while preserving `db.QueryServer`; the
-    # shard subsystem loads on first use for the same reason
+    # lazy: keeps `python -m repro_torch.db.query_serve` (and
+    # `.serve_loop`) free of the runpy double-import warning while
+    # preserving `db.QueryServer`; the shard subsystem loads on first
+    # use for the same reason
     if name in _SERVE_EXPORTS:
         from repro_torch.db import query_serve as _qs
         return getattr(_qs, name)
+    if name in _LOOP_EXPORTS:
+        from repro_torch.db import serve_loop as _sl
+        return getattr(_sl, name)
     if name in _SHARD_EXPORTS:
         from repro_torch.db import shard as _shard
         return getattr(_shard, name)

@@ -62,9 +62,14 @@ class ShardedQueryServer(QueryServer):
         """The served sharded table."""
         return self.table
 
-    def submit_join(self, *args, **kwargs) -> int:
-        raise TypeError("a ShardedQueryServer serves no joins: run them "
-                        "through repro_torch.db.execute_join")
+    @property
+    def submit_join(self):
+        """Absent, as on the reference's sharded server: it serves no
+        joins (run them through `repro_torch.db.execute_join`), and
+        `ServeLoop.submit_join` rejects them at admission because
+        `hasattr(server, "submit_join")` is false."""
+        raise AttributeError("a ShardedQueryServer serves no joins: run "
+                             "them through repro_torch.db.execute_join")
 
     # -- batch execution ---------------------------------------------------
 

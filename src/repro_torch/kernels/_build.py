@@ -53,14 +53,17 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # kernel name -> launches since the last reset; each wrapper adds one
-# exactly where it launches its kernel (the two ntt_br directions apart)
+# exactly where it launches its kernel (the two ntt_br directions apart),
+# under a lock: the serving loop's pump and client threads launch at once
+_count_lock = threading.Lock()
 LAUNCHES: Dict[str, int] = {"eval_coeff0_gadget": 0, "eval_coeff0_paper": 0,
                             "negacyclic_mul": 0, "negacyclic_mul_ntt": 0,
                             "ntt_br_fwd": 0, "ntt_br_inv": 0}
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:

@@ -1,21 +1,46 @@
-"""`repro_torch.obs`: tracing, metrics and launch accounting.
+"""`repro_torch.obs`: tracing, metrics, and launch accounting in one layer.
 
-The part of `repro.obs` the served path uses: spans (`obs.span`,
-`obs.tracing`), counters and histograms (`obs.count`, `obs.observe`,
-`obs.REGISTRY`) that absorb the per-call stats dataclasses, and the
-launch-signature watcher (`obs.jit_launch`).  Everything is a
-one-bool-check no-op unless enabled (`with obs.tracing() as tr:` or
-`REPRO_OBS=1`).  `export.py` is not ported yet.
+The engine's cost story — eval launches, compare lanes, index probes,
+launch-signature retraces, batch latency — flows through this package
+so the executor, the servers, the serving loop and the benchmarks all
+hang measurements on the same counters.  Three pieces:
+
+  * spans  (`obs.span`, `obs.tracing`) — nested, device-true timing,
+    Chrome-trace export; near-zero cost when disabled;
+  * metrics (`obs.count`, `obs.observe`, `obs.metrics.REGISTRY`) —
+    counters + histograms that absorb the per-call stats dataclasses;
+  * jitwatch (`obs.jit_launch`) — kernel launch-signature sets per
+    site, surfacing pow2-bucketing violations as a `jit.retraces`
+    counter;
+
+and `export` (Chrome-trace files, flat metric dumps, bench fields).
+Enable for a region with `with obs.tracing() as tr:` (or process-wide
+via `REPRO_OBS=1`); everything is a one-bool-check no-op otherwise.
 """
+from repro_torch.obs import export, jitwatch, metrics
+from repro_torch.obs.export import (bench_fields, chrome_trace, metrics_dump,
+                                    validate_chrome_trace, write_chrome_trace,
+                                    write_metrics)
 from repro_torch.obs.jitwatch import launch as jit_launch
-from repro_torch.obs.metrics import (REGISTRY, absorb_batch_stats,
+from repro_torch.obs.jitwatch import retraces as jit_retraces
+from repro_torch.obs.jitwatch import signatures as jit_signatures
+from repro_torch.obs.metrics import (REGISTRY, Counter, Histogram, Registry,
+                                     absorb_batch_stats,
                                      absorb_compaction_stats,
                                      absorb_exec_stats, absorb_join_stats,
                                      count, observe)
-from repro_torch.obs.trace import TRACER, is_enabled, span, tracing
+from repro_torch.obs.trace import (TRACER, Span, Tracer, current_span,
+                                   disable, enable, get_tracer, is_enabled,
+                                   span, tracing)
 
 __all__ = [
-    "jit_launch", "REGISTRY", "absorb_batch_stats",
-    "absorb_compaction_stats", "absorb_exec_stats", "absorb_join_stats",
-    "count", "observe", "TRACER", "is_enabled", "span", "tracing",
+    "export", "jitwatch", "metrics",
+    "bench_fields", "chrome_trace", "metrics_dump", "validate_chrome_trace",
+    "write_chrome_trace", "write_metrics",
+    "jit_launch", "jit_retraces", "jit_signatures",
+    "REGISTRY", "Counter", "Histogram", "Registry",
+    "absorb_batch_stats", "absorb_compaction_stats",
+    "absorb_exec_stats", "absorb_join_stats", "count", "observe",
+    "TRACER", "Span", "Tracer", "current_span", "disable", "enable",
+    "get_tracer", "is_enabled", "span", "tracing",
 ]

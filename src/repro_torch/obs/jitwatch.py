@@ -12,7 +12,7 @@ Gated on `obs.is_enabled()` like everything else in the layer.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Set, Tuple
+from typing import Dict, List, Set, Tuple
 
 from repro_torch.obs import metrics
 from repro_torch.obs import trace as _trace
@@ -48,6 +48,19 @@ def launch(site: str, *operands) -> None:
     if retrace:
         metrics.count("jit.retraces", 1)
         metrics.count("jit.retraces", 1, site=site)
+
+
+def signatures() -> Dict[str, List[Tuple]]:
+    """Site → sorted list of distinct launch signatures seen so far."""
+    with _lock:
+        return {site: sorted(map(repr, sigs))
+                for site, sigs in sorted(_sites.items())}
+
+
+def retraces() -> int:
+    """Total distinct-signatures-beyond-the-first across all sites."""
+    with _lock:
+        return sum(max(0, len(s) - 1) for s in _sites.values())
 
 
 def reset() -> None:

@@ -1,6 +1,4 @@
-"""Counters + histograms for the encrypted query engine: the part of
-`repro.obs.metrics` that the served and write paths use (the snapshot
-view and the join absorber arrive with later slices).
+"""Counters + histograms for the encrypted query engine.
 
 The registry is the aggregation layer OVER the per-call stats
 dataclasses (`ExecStats`, `BatchStats`): those stay as cheap always-on
@@ -14,7 +12,7 @@ check when disabled.
 Counter glossary:
 
   eval.launches        batched raw-eval launches (fused-scan tiles,
-                       index probe steps)
+                       index probe steps, pair-grid tiles, merge rounds)
   eval.lanes           total compare lanes through those launches
   index.probes         encrypted binary-search probe lanes
   bytes.moved          ciphertext bytes entering launches
@@ -47,8 +45,9 @@ class Counter:
 
 
 class Histogram:
-    """Value distribution: keeps the raw observations (engine
-    cardinality is batches, not rows, so the buffer stays small)."""
+    """Value distribution; keeps raw observations (engine cardinality
+    is batches, not rows, so the buffer stays small) and derives
+    count/sum/percentiles on demand."""
 
     __slots__ = ("values",)
 
@@ -59,6 +58,31 @@ class Histogram:
         """Record one observation."""
         self.values.append(float(v))
 
+    @property
+    def count(self) -> int:
+        """Number of observations."""
+        return len(self.values)
+
+    @property
+    def total(self) -> float:
+        """Sum of observations."""
+        return float(sum(self.values))
+
+    def percentile(self, p: float) -> float:
+        """The p-th percentile (0..100) by nearest-rank
+        (ceil(p/100·n)-th sorted value); 0.0 if empty."""
+        if not self.values:
+            return 0.0
+        xs = sorted(self.values)
+        k = max(0, min(len(xs) - 1,
+                       -(-int(p * len(xs)) // 100) - 1))  # ceil w/o math
+        return xs[k]
+
+    def summary(self) -> Dict[str, float]:
+        """count / sum / p50 / p99 as a flat dict."""
+        return {"count": self.count, "sum": self.total,
+                "p50": self.percentile(50), "p99": self.percentile(99)}
+
 
 MetricKey = Tuple[str, Tuple[Tuple[str, str], ...]]
 
@@ -67,8 +91,16 @@ def _key(name: str, labels: Dict[str, Any]) -> MetricKey:
     return (name, tuple(sorted((k, str(v)) for k, v in labels.items())))
 
 
+def _key_str(key: MetricKey) -> str:
+    name, labels = key
+    if not labels:
+        return name
+    inner = ",".join(f"{k}={v}" for k, v in labels)
+    return f"{name}{{{inner}}}"
+
+
 class Registry:
-    """Name+labels → Counter/Histogram map."""
+    """Name+labels → Counter/Histogram map with a flat snapshot view."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -98,6 +130,17 @@ class Registry:
         with self._lock:
             m = self._metrics.get(key)
         return m.value if isinstance(m, Counter) else 0
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Flat `{name_string: int | summary-dict}` dump (JSON-safe),
+        sorted by key for stable diffs."""
+        with self._lock:
+            items = sorted(self._metrics.items(), key=lambda kv: kv[0])
+        out: Dict[str, Any] = {}
+        for key, m in items:
+            out[_key_str(key)] = (m.value if isinstance(m, Counter)
+                                  else m.summary())
+        return out
 
     def reset(self) -> None:
         """Drop every metric (fresh trace region)."""

@@ -616,13 +616,20 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.db.shard.spec", "repro_torch.db.shard.table",
             "repro_torch.db.shard.executor", "repro_torch.db.shard.index",
             "repro_torch.db.shard.join",
-            "repro_torch.db.shard.serve"} <= set(mods)
+            "repro_torch.db.shard.serve", "repro_torch.db.serve_loop",
+            "repro_torch.obs.export", "repro_torch.baselines.paillier",
+            "repro_torch.baselines.hope", "repro_torch.baselines.pope",
+            "repro_torch.launch.elastic", "repro_torch.launch.serve",
+            "repro_torch.models.config", "repro_torch.models.layers",
+            "repro_torch.models.transformer", "repro_torch.models.serve",
+            "repro_torch.configs.smollm_360m",
+            "repro_torch.configs.whisper_base"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
-            "m.startswith('repro.'))\n"
+            "m.startswith(('jax.', 'jaxlib', 'ml_dtypes')) or "
+            "m == 'repro' or m.startswith('repro.'))\n"
             "print(len(bad), bad)\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
