@@ -51,7 +51,15 @@ Phases, each printing one JSON line:
                shape the write phase gave it (column pass at its scan
                tiles, 2,048-row delta tiles and the full 65,536 rows,
                bounds pass, lane form at 32,768 sort pairs, 65,536 merge
-               pairs and the probe lanes, one bound for every lane).
+               pairs and the probe lanes, one bound for every lane), and
+               at every shape the write path recorded, its calls
+               reconciled with the path's launches; each recorded shape
+               split into the kernel's device time (CUDA graph replay),
+               the wrapper's host time and the empty launch's floor
+               (kernels/timing.py).  Then its edges: 1, 3, 5 and 127
+               lanes (multiples of no cluster size), one b for every
+               lane, the column form at a row offset, and n = 16,384
+               (paper mode on the paper-ckks ring), split and wide.
   9. shard   — after the write table is freed, the serve keys' hg38 table
                re-encrypted (same seed, same rows) and re-partitioned into
                4 logical shards ([4, 16,384] slots); a
@@ -71,7 +79,8 @@ Phases, each printing one JSON line:
                x 4,096 rows) in gadget mode (two joins deduped onto one
                grid, and a [4 x 4]-shard join) and in paper mode (the
                write keys).  Then the gadget Eval against its plain
-               version at every shape the path gave it, and the pair-grid
+               version at every shape the path gave it, the paper Eval
+               likewise (its calls reconciled), and the pair-grid
                Eval layouts (gadget: the negated right column against
                negated left atoms, with a q - 1 digit tile; paper: the
                column form of both sides) against their plain versions.
@@ -89,7 +98,8 @@ Phases, each printing one JSON line:
                SHED.  Then the paper Eval and both multiplies against
                their plain versions at every shape the loop launched
                them at, on rows of each tenant's own column, launch
-               counts reconciled.
+               counts reconciled; each paper shape split into device,
+               host and floor times beside its bound.
  12. lm      — smollm-360m at full width in bfloat16 (seeded weights):
                8 requests in batches of 4, prompt 32, 16 greedy tokens;
                one batch's decode steps under torch.profiler (device
@@ -204,16 +214,8 @@ def emit(obj) -> None:
 
 def time_cuda(fn, reps: int) -> float:
     """Milliseconds per call by CUDA events, after one warm-up call."""
-    import torch
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from repro_torch.kernels.timing import events_ms
+    return events_ms(fn, reps)
 
 
 def max_abs_err(a, b) -> int:
@@ -808,6 +810,7 @@ def phase_write(dev, vals) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
+    pshapes, pstop = record_paper_shapes()
     walls = {}
     with obs.tracing() as tracer:
         t0 = time.perf_counter()
@@ -915,6 +918,7 @@ def phase_write(dev, vals) -> tuple:
         walls["post_probe_s"] = sync_s(t0) / 2
         post_ok = bool(np.array_equal(post.mask, want))
         launches = dict(_build.LAUNCHES)
+        pstop()
         peak = torch.cuda.max_memory_allocated()
     spans = _span_ms(tracer)
     compact_dev = _device_summary(prof, walls["compact_s"])
@@ -957,6 +961,7 @@ def phase_write(dev, vals) -> tuple:
             "compaction cost a rebuild, not a merge")
     require(all(launches[k] > 0 for k in WRITE_KERNELS),
             f"a kernel never launched on the write path: {launches}")
+    out["recorded_paper_shapes"] = pshapes        # for the paper phase
     return ks, table, out
 
 
@@ -1125,11 +1130,15 @@ def check_paper_shapes(sources: dict, shapes: dict, seed: int,
     of contiguous lanes on the column's own first rows, every other
     operand on rows drawn by a seeded generator and laid out at the
     recorded lane stride.  Each shape is timed by CUDA events beside its
-    bound; the plain version too at the most-called shape, which comes
-    first."""
+    bound (`ms`, `ratio`), and split (`kernels/timing.py`) into the
+    kernel's device time (`device_ms`, graph replay; `device_ratio`) and
+    the wrapper's host time (`host_ms`); the empty launch's floor once
+    (`floor`); the plain version too at the most-called shape, which
+    comes first."""
     import torch
     from repro_torch.core import sampling
     from repro_torch.kernels import cmp_eval as CK
+    from repro_torch.kernels import timing
 
     dev = next(iter(sources.values()))[1].c0.device
     gen = sampling.make_generator(seed, dev)
@@ -1159,25 +1168,40 @@ def check_paper_shapes(sources: dict, shapes: dict, seed: int,
         torch.cuda.synchronize()
         same = bool(torch.equal(got, want))
         eq &= same
-        out.append({"tenant": tenant, "lanes": B, "b_rows": b_rows,
-                    "strides": list(strides), "calls": calls,
-                    "equal": same, "max_abs_err": max_abs_err(got, want),
-                    "ms": time_cuda(kernel, 3),
-                    **paper_bound(B, K, n, b_rows > 0, b_rows, rate)})
+        rec = {"tenant": tenant, "lanes": B, "b_rows": b_rows,
+               "strides": list(strides), "calls": calls,
+               "equal": same, "max_abs_err": max_abs_err(got, want),
+               "ms": time_cuda(kernel, 3), **timing.split(kernel),
+               **paper_bound(B, K, n, b_rows > 0, b_rows, rate)}
+        rec["ratio"] = rec["ms"] / rec["bound_ms"]
+        rec["device_ratio"] = rec["device_ms"] / rec["bound_ms"]
+        out.append(rec)
         if len(out) == 1:
             out[0]["plain_ms"] = time_cuda(plain, 1)
         del a0, a1, b0, b1, got, want
     torch.cuda.empty_cache()
-    return {"tolerance": 0, "equal": eq, "shapes": out}
+    floor = timing.launch_floor(dev)
+    # host_ms is the wrapper's own time only while the card stayed busy
+    # behind every batch of calls
+    require(floor["saturated"] and all(r["saturated"] for r in out),
+            "paper shapes: the card went idle under a host-time batch")
+    return {"tolerance": 0, "equal": eq, "shapes": out, "floor": floor}
 
 
 def phase_paper(ks, table, write, rate) -> dict:
     """The paper Eval kernel against its plain version at every shape the
-    write phase gave it, on the write table's column; timed at the scan
-    tile and at the sort and merge stage shapes."""
+    write phase gave it, on the write table's column: the shapes listed
+    below and every shape the write path recorded (`record_paper_shapes`,
+    its calls reconciled with the path's launches, each shape split into
+    device and host time); timed at the scan tile and at the sort and
+    merge stage shapes.  Then its edges: lane counts that are multiples
+    of no cluster size (1, 3, 5, 127), one b for every lane, the column
+    form at a row offset, and n = 16,384 (the paper-ckks ring in paper
+    mode) on seeded residues, split and wide."""
     import torch
     from repro_torch.core import sampling
     from repro_torch.core.compare import next_pow2
+    from repro_torch.core.params import make_params
     from repro_torch.kernels import cmp_eval as CK
     from repro_torch.kernels import ops as KO
 
@@ -1220,6 +1244,13 @@ def phase_paper(ks, table, write, rate) -> dict:
                       col.c1[probe[0, :B]], col.c0[probe[1, :B]],
                       col.c1[probe[1, :B]]))
     cases.append(("lanes one bound", *lo, lo[0][:1], lo[1][:1]))
+    for B in (1, 3, 5, 127):
+        cases.append((f"lanes edge {B}", *(x[:B] for x in lo),
+                       *(x[:B] for x in hi)))
+    cases.append(("lanes edge 127 one bound", *(x[:127] for x in lo),
+                  hi[0][:1], hi[1][:1]))
+    cases.append(("column edge 127@7", col.c0[7:134], col.c1[7:134], None,
+                  None))
     eq, errs = True, {}
     for name, a0, a1, b0, b1 in cases:
         got = CK.eval_coeff0_paper(a0, a1, *args, b0, b1)
@@ -1227,6 +1258,36 @@ def phase_paper(ks, table, write, rate) -> dict:
         torch.cuda.synchronize()
         eq &= torch.equal(got, want)
         errs[name] = max_abs_err(got, want)
+    # n = 16,384: the kernel's largest instance, split and wide
+    big = make_params("paper-ckks", mode="paper")
+    bqs = torch.tensor(big.qs, dtype=torch.int64, device=ks.device)
+
+    def residues(*shape):
+        u = torch.randint(0, 1 << 62, shape + (big.num_towers, big.n),
+                          generator=gen, device=ks.device)
+        return u % bqs[:, None]
+    bargs = (residues(), bqs, big.scale)
+    wide = CK.paper_wide_lanes() + 5
+    x0, x1, y0, y1 = (residues(wide) for _ in range(4))
+    for B in (1, 5, 127, wide):
+        for name, b0, b1, off in (("lanes", y0[:B], y1[:B], 0),
+                                  ("one bound", y0[:1], y1[:1], 0),
+                                  ("column", None, None, 3)):
+            if off + B > wide:
+                off = 0
+            a0, a1 = x0[off:off + B], x1[off:off + B]
+            got = CK.eval_coeff0_paper(a0, a1, *bargs, b0, b1)
+            want = CK.eval_coeff0_paper_plain(a0, a1, *bargs, b0, b1)
+            torch.cuda.synchronize()
+            eq &= torch.equal(got, want)
+            errs[f"n16384 {name} {B}@{off}"] = max_abs_err(got, want)
+    del x0, x1, y0, y1, got, want
+    # every shape the write path launched, its calls against its launches
+    recorded = check_paper_shapes(
+        {id(ks.cek_rev): ("write", col)}, write["recorded_paper_shapes"],
+        SEED + 14, rate)
+    reconciled = (sum(r["calls"] for r in recorded["shapes"])
+                  == write["launches"]["eval_coeff0_paper"])
     timed = {
         "column": [{"rows": T,
                     "ms": time_cuda(lambda: CK.eval_coeff0_paper(
@@ -1253,9 +1314,14 @@ def phase_paper(ks, table, write, rate) -> dict:
     del lo, hi, mlo, mhi, cases
     torch.cuda.empty_cache()
     out = {"phase": "paper", "tolerance": 0, "equal": eq,
-           "max_abs_err": max(errs.values()), "cases": errs, **timed}
+           "max_abs_err": max(errs.values()), "cases": errs, **timed,
+           "write_shapes": recorded, "launches_reconciled": reconciled}
     emit(out)
     require(eq, f"paper Eval kernel != plain (|err| {errs})")
+    require(recorded["equal"], "paper Eval kernel != plain at a write path "
+            f"shape: {recorded['shapes']}")
+    require(reconciled, f"write launches {write['launches']} != the "
+            "recorded calls")
     return out
 
 
@@ -1525,6 +1591,7 @@ def phase_join(ks, wks, vals, rate) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     shapes, stop_recording = record_gadget_shapes()
+    pshapes, pstop = record_paper_shapes()
     t0 = time.perf_counter()
     left = Table.from_arrays(ks, "hg38_l", {"k": lk}, SEED + 40)
     right = Table.from_arrays(ks, "hg38_r", {"k": rk}, SEED + 41)
@@ -1596,9 +1663,15 @@ def phase_join(ks, wks, vals, rate) -> tuple:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     stop_recording()
+    pstop()
     peak = torch.cuda.max_memory_allocated()
     path_shapes = check_gadget_shapes(ks, lcut.column("k"), shapes,
                                       SEED + 46, rate)
+    paper_shapes = check_paper_shapes(
+        {id(wks.cek_rev): ("join", pl.column("k"))}, pshapes, SEED + 47,
+        rate)
+    paper_reconciled = (sum(s["calls"] for s in paper_shapes["shapes"])
+                        == launches["eval_coeff0_paper"])
 
     def stats(r):
         s = r.stats
@@ -1623,7 +1696,8 @@ def phase_join(ks, wks, vals, rate) -> tuple:
                            "shards": list(sharded.stats.shards)},
         "nested_paper": {"exact": paper_ok, **stats(paper)},
         "walls": walls, "launches": launches, "peak_mem_bytes": peak,
-        "gadget_shapes": path_shapes,
+        "gadget_shapes": path_shapes, "paper_shapes": paper_shapes,
+        "paper_launches_reconciled": paper_reconciled,
     }
     emit(out)
     require(sm_ok, "the sort-merge join's pairs differ from the plaintext")
@@ -1634,6 +1708,10 @@ def phase_join(ks, wks, vals, rate) -> tuple:
     require(paper_ok, "the paper-mode nested cut's pairs differ")
     require(path_shapes["equal"], "the gadget Eval != plain at a join path "
             f"shape: {path_shapes['shapes']}")
+    require(paper_shapes["equal"], "the paper Eval != plain at a join path "
+            f"shape: {paper_shapes['shapes']}")
+    require(paper_reconciled, f"paper Eval launches {launches} != the "
+            "recorded calls")
     require(all(launches[k] > 0 for k in JOIN_KERNELS),
             f"a kernel never launched on the join path: {launches}")
     return lcut, rcut, pl, pr, out

@@ -89,6 +89,12 @@ def compare_fae(ks: KeySet, ct0: Ciphertext, ct1: Ciphertext) -> torch.Tensor:
     return eval_value(ks, ct0, ct1) > 0
 
 
+def compare_many(ks: KeySet, cts_a: Ciphertext, cts_b: Ciphertext, *,
+                 eps: Optional[float] = None) -> torch.Tensor:
+    """Vectorized Alg. 2 over matching batch shapes."""
+    return compare(ks, cts_a, cts_b, eps=eps)
+
+
 # ---------------------------------------------------------------------------
 # database operations
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ from repro_torch.db.executor import (  # noqa: F401
     ExecStats,
     QueryResult,
     execute,
+    fused_compare,
     fused_eval,
 )
 from repro_torch.db.index import SortedIndex  # noqa: F401

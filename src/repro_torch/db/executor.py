@@ -171,6 +171,16 @@ def fused_eval(ks: KeySet, table: Table, atoms: List[P.Atom], *,
         return out
 
 
+def fused_compare(ks: KeySet, table: Table, atoms: List[P.Atom], *,
+                  lane_budget: Optional[int] = None) -> np.ndarray:
+    """Three-way outcomes (profile τ) for all atoms' fused scan: [A, N]
+    int32 -1/0/+1, the view of `fused_eval`'s raw values for callers
+    that want it (the executor itself consumes the raw values)."""
+    v = fused_eval(ks, table, atoms, lane_budget=lane_budget)
+    tau = ks.params.tau
+    return np.where(np.abs(v) < tau, 0, np.sign(v)).astype(np.int32)
+
+
 def _atom_mask(op: str, vals: np.ndarray, tau: int) -> np.ndarray:
     """Raw eval row -> bool mask under this atom's decode threshold."""
     if op == ">=":

@@ -200,6 +200,11 @@ class Table:
         """[n_padded] bool — True on BASE data rows, False on pad rows."""
         return np.arange(self.n_padded) < self.n_rows
 
+    @property
+    def column_names(self) -> tuple:
+        """Names of the encrypted columns."""
+        return tuple(self.columns)
+
     def ciphertext_bytes(self) -> int:
         """Storage footprint of all encrypted columns (base + delta)."""
         total = sum(ct.c0.nbytes + ct.c1.nbytes

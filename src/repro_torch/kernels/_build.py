@@ -31,13 +31,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 # library (csrc/<name>.cu) -> {C entry point: argtypes}; every entry
-# returns the CUDA error code of its launch as an int
+# returns an int, the CUDA error code of its launch unless noted
 ENTRIES: Dict[str, Dict[str, list]] = {
     "cmp_eval": {
         "hades_eval_gadget": [_P, _P, _P, _P, _L, _L, _P, _P, _L, _P, _I,
                               _I, _I, _I, _I, _I, _P],
         "hades_eval_paper": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _L,
                              _P, _L, _I, _I, _P],
+        # the launch floor (kernels/timing.py); no path launches it
+        "hades_empty_launch": [_P],
+        # returns kPaperWideLanes, not an error code
+        "hades_paper_wide_lanes": [],
     },
     "ntt": {
         "hades_negacyclic_mul": [_P, _L, _P, _L, _P, _L, _P, _P, _I, _I,
@@ -147,6 +151,11 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
-    """The current PyTorch stream on `device`, as the C entries take it."""
+    """The current PyTorch stream on `device` (a torch.device or an index),
+    as the C entries take it: read in C, without building a Stream object
+    per call; the capture stream while a CUDA graph is captured."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device if isinstance(device, int) else device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

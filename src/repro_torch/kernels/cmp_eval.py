@@ -31,8 +31,10 @@ the rows of one column, evaluated once so that the executor subtracts
 the bounds' values afterwards; the Eval is linear mod q).  The key
 multiply's coefficient 0 is the dot product of d1 with the reversed
 paper CEK (`KeySet.cek_rev`, [K, n]), every term reduced mod q.  On CUDA
-tensors it launches `csrc/cmp_eval.cu`'s paper kernel once; on CPU
-tensors it runs `eval_coeff0_paper_plain`.  It replaces
+tensors it launches `csrc/cmp_eval.cu`'s paper kernel once (a cluster
+of blocks per lane and tower for small lane sets, warps walking lanes
+against rev(cek) in shared memory for wide ones); on CPU tensors it runs
+`eval_coeff0_paper_plain`.  It replaces
 `repro/kernels/cmp_eval.py::_eval_paper_kernel`.
 """
 from __future__ import annotations
@@ -309,27 +311,42 @@ def eval_coeff0_gadget(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
 # paper mode
 # ---------------------------------------------------------------------------
 
+# the ring degrees the paper kernel is built for: every profile's n
+# (core/params.py); the kernel's trip counts are compile-time constants
+PAPER_N = (256, 512, 1024, 4096, 16384)
+
+
 def _check_paper(a0, a1, b0, b1, cek_rev, qs):
-    if (b0 is None) != (b1 is None):
+    # written out operand by operand: the wrapper runs at every probe
+    # step, and a loop over a tuple of tensors costs more than the launch
+    has_b = b0 is not None
+    if has_b != (b1 is not None):
         raise ValueError("pass both of b0, b1 or neither")
-    tensors = [t for t in (a0, a1, b0, b1, cek_rev, qs) if t is not None]
-    if any(t.dtype != torch.int64 for t in tensors):
+    i64 = torch.int64
+    if (a0.dtype != i64 or a1.dtype != i64 or cek_rev.dtype != i64
+            or qs.dtype != i64
+            or has_b and (b0.dtype != i64 or b1.dtype != i64)):
         raise ValueError("eval_coeff0_paper takes int64 tensors")
-    if len({t.device for t in tensors}) != 1:
+    dev = a1.get_device()
+    if (a0.get_device() != dev or cek_rev.get_device() != dev
+            or qs.get_device() != dev
+            or has_b and (b0.get_device() != dev or b1.get_device() != dev)):
         raise ValueError("eval_coeff0_paper operands on different devices")
     if cek_rev.dim() != 2:
         raise ValueError(f"cek_rev {tuple(cek_rev.shape)} is not [K, n]")
     K, n = cek_rev.shape
-    if a1.dim() != 3 or tuple(a1.shape[1:]) != (K, n) \
-            or a0.shape != a1.shape:
-        raise ValueError(f"a0/a1 {tuple(a0.shape)}/{tuple(a1.shape)} are "
+    shape = a1.shape
+    if len(shape) != 3 or shape[1] != K or shape[2] != n \
+            or a0.shape != shape:
+        raise ValueError(f"a0/a1 {tuple(a0.shape)}/{tuple(shape)} are "
                          f"not one [B, {K}, {n}]")
-    B = a1.shape[0]
-    if b0 is not None and (b0.shape != b1.shape or b1.dim() != 3
-                           or tuple(b1.shape[1:]) != (K, n)
-                           or b1.shape[0] not in (1, B)):
-        raise ValueError(f"b {tuple(b1.shape)} is not [{B} or 1, {K}, {n}]")
-    if tuple(qs.shape) != (K,):
+    B = shape[0]
+    if has_b:
+        bs = b1.shape
+        if (b0.shape != bs or len(bs) != 3 or bs[1] != K or bs[2] != n
+                or bs[0] != B and bs[0] != 1):
+            raise ValueError(f"b {tuple(bs)} is not [{B} or 1, {K}, {n}]")
+    if qs.dim() != 1 or qs.shape[0] != K:
         raise ValueError(f"qs {tuple(qs.shape)} is not [{K}]")
     return B, K, n
 
@@ -356,12 +373,35 @@ def eval_coeff0_paper_plain(a0, a1, cek_rev, qs, scale, b0=None,
 def _rows(x: torch.Tensor, n: int):
     """x [B, K, n] as rows the kernel addresses by one batch stride (0
     when one polynomial serves every lane): a view when it already is
-    one, else a contiguous copy."""
+    one, else a contiguous copy.  Rows start on a 16-byte boundary at an
+    even stride: the kernel reads them 16 bytes at a time."""
+    if x.is_contiguous() and not x.data_ptr() % 16:
+        return x, (0 if x.shape[0] == 1 else x.shape[1] * n)
     if x.shape[0] == 1:
-        return x[0].contiguous(), 0
-    if x.stride()[1:] != (n, 1):
-        x = x.contiguous()
+        x = x[0]
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            x = x.clone(memory_format=torch.contiguous_format)
+        return x, 0
+    if x.stride()[1:] != (n, 1) or x.stride(0) % 2 or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
     return x, x.stride(0)
+
+
+_paper_entry = None             # the C entry, resolved at the first launch
+
+
+def _paper_launch():
+    global _paper_entry
+    if _paper_entry is None:
+        _paper_entry = _build.load("cmp_eval").hades_eval_paper
+    return _paper_entry
+
+
+def paper_wide_lanes() -> int:
+    """Lanes from which the paper kernel runs its wide form, below which
+    its cluster-split form (csrc/cmp_eval.cu's kPaperWideLanes; builds
+    the library)."""
+    return _build.load("cmp_eval").hades_paper_wide_lanes()
 
 
 def eval_coeff0_paper(a0, a1, cek_rev, qs, scale, b0=None,
@@ -370,27 +410,32 @@ def eval_coeff0_paper(a0, a1, cek_rev, qs, scale, b0=None,
 
     a0/a1: [B, K, n] residues; b0/b1: [B, K, n], [1, K, n] (one
     polynomial for every lane) or None (column form); cek_rev: [K, n];
-    qs: [K].  The CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    qs: [K].  The CUDA kernel for CUDA tensors (n one of `PAPER_N`), the
+    plain version for CPU tensors."""
     B, K, n = _check_paper(a0, a1, b0, b1, cek_rev, qs)
     if not a1.is_cuda:
         return eval_coeff0_paper_plain(a0, a1, cek_rev, qs, scale, b0, b1)
-    out = torch.empty((B, K), dtype=torch.int64, device=a1.device)
+    if n not in PAPER_N:
+        raise ValueError(f"the paper Eval kernel is built for n in "
+                         f"{PAPER_N}, not {n}")
+    out = a1.new_empty((B, K))
     if B == 0:
         return out
-    cek_rev, qs = cek_rev.contiguous(), qs.contiguous()
+    if not cek_rev.is_contiguous() or cek_rev.data_ptr() % 16:
+        cek_rev = cek_rev.clone(memory_format=torch.contiguous_format)
+    if not qs.is_contiguous():
+        qs = qs.contiguous()
     (pa0, sa0), (pa1, sa1) = _rows(a0, n), _rows(a1, n)
     if b0 is None:
-        pb0 = pb1 = None
+        p_b0 = p_b1 = None
         sb0 = sb1 = 0
     else:
         (pb0, sb0), (pb1, sb1) = _rows(b0, n), _rows(b1, n)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = _build.load("cmp_eval")
-    rc = lib.hades_eval_paper(
-        ptr(pa0), sa0, ptr(pa1), sa1, ptr(pb0), sb0, ptr(pb1), sb1,
+        p_b0, p_b1 = pb0.data_ptr(), pb1.data_ptr()
+    rc = _paper_launch()(
+        pa0.data_ptr(), sa0, pa1.data_ptr(), sa1, p_b0, sb0, p_b1, sb1,
         cek_rev.data_ptr(), qs.data_ptr(), int(scale), out.data_ptr(), B,
-        K, n, _build.stream_handle(a1.device))
+        K, n, _build.stream_handle(a1.get_device()))
     _build.check(rc, "eval_coeff0_paper")
     _build.count_launch("eval_coeff0_paper")
     return out

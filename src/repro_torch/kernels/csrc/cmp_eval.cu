@@ -1,5 +1,5 @@
 // HADES Eval, coefficient 0: the gadget-mode kernel for every (atom, row)
-// lane of a scan tile, and the paper-mode kernel (further below) for
+// lane of a scan tile, and the paper-mode kernels (further below) for
 // lane pairs or the rows of one column.
 //
 // Replaces the TPU kernel src/repro/kernels/cmp_eval.py::_eval_gadget_kernel
@@ -43,6 +43,7 @@
 // double-buffered: without that the bounds' reads through L1 took half
 // the time.  B's L2 traffic is 256 KB per 16 rows.  The row tile is
 // addressed by pointer offset into the table's column (no tile copy).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
@@ -53,8 +54,6 @@ using hades::mulmod;
 using hades::recombine_bytes;
 using hades::reduce;
 using hades::submod;
-
-constexpr int kThreads = 256;         // the paper kernel's block
 
 constexpr int kEvalWarps = 4;
 // warps sharing one m16 tile, each summing every kSplit-th group: of 1, 2
@@ -409,88 +408,417 @@ extern "C" int hades_eval_gadget(
 // trip per lane; this one uses coeff0(x ⊛ c) = <x, rev(c)>, rev(c)[0] =
 // c[0], rev(c)[i] = -c[n-i] mod q, against the reversed paper CEK
 // (`KeySet.cek_rev`, [K, n], precomputed once per key set).  Terms are
-// 31 x 31-bit, so each is Barrett-reduced before it is summed: n reduced
-// terms stay below 2^43, and one more reduction ends the lane.  a - b is
-// formed in registers as a + q - b; no difference tensor exists and no
-// signed % is used.
+// 31 x 31-bit, so each is Barrett-reduced before it is summed; a - b is
+// formed in registers as a + q - b (no difference tensor, no signed %).
+// Sums: at most n reduced terms, each below 2^31, meet in one (lane,
+// tower) sum, so every partial and the cluster's total stay below
+// n * 2^31 <= 2^45 at n = 16,384: uint64 holds them exactly, and one
+// more reduction ends the lane.
 //
-// Bound on this card: bytes.  A lane reads its K*n int64 words of c1 (64 KB
-// at paper-bfv), one coefficient of c0 per tower and, in the lane form, as
-// much of b (nothing when b has batch stride 0), against K*n reduced
-// multiply-adds: far below the integer rate per byte.  Design: one block
-// per lane, coalesced 8-byte reads, rev(cek) (64 KB) read through L2, the
-// per-tower sums met in warp shuffles and one shared-memory pass.  The
-// column form addresses a row tile of a table's column by pointer (the
-// wrapper passes the tile's first row), so no tile copy is made.
+// Bound on this card: bytes.  A lane reads its K*n int64 words of c1 (64
+// KB at paper-bfv), one coefficient of c0 per tower and, in the lane form,
+// as much of b (nothing new when b has batch stride 0), against K*n
+// reduced multiply-adds: far below the integer rate per byte.  The paths
+// launch it at two very different sizes, and it has one design for each:
+//
+// * Small lane sets (probe steps and merges of 1-8,191 lanes).  A few
+//   lanes cannot fill 132 SMs with a block each, and one block walking a
+//   lane's 2 x 4,096 coefficients waits on one dependent memory round trip
+//   after another.  So each (lane, tower) dot product is split over the S
+//   blocks of a thread-block cluster (S = 1, 2, 4 or 8, the portable
+//   sizes; the smallest with lanes x K x S >= two waves of blocks, S = 1
+//   once lanes x K fills them), towers on the grid.  A thread issues its
+//   share's 16-byte loads (two coefficients of a, b and rev(cek) each)
+//   in chunks of kPaperChunk = 8 vectors, every load of a chunk before
+//   the chunk's first multiply, the trip count a compile-time constant
+//   (one instance per profile n): one chunk when S >= 2 at n <= 4,096,
+//   2 at n = 4,096 with S = 1, 8 at n = 16,384 with S = 1; rank 0's first thread loads
+//   coefficient 0 of a and b at block start.  A block sums its n/S terms
+//   in warp shuffles and shared memory; each block stores its partial
+//   into rank 0's shared memory (distributed shared memory), the cluster
+//   meets at one barrier, and rank 0 adds scale * d0 and writes the
+//   residue: one launch, no global atomics.
+// * Wide lane sets (>= 8,192 lanes: sort stages, merges, column passes).
+//   Reading rev(cek) through L2 for every lane doubles the L2 traffic of
+//   a column pass.  So a block stages one tower of rev(cek) in shared
+//   memory once (cp.async; n int64, 32 KB at n = 4,096) and its warps
+//   then walk lanes, one lane per warp at a time, streaming the lane's a
+//   (and b) in chunks of 16 (8 each with b) 16-byte loads per thread,
+//   each chunk's loads issued while the chunk before it is summed; the
+//   lane's sum meets in warp shuffles, with no block barrier.  The grid is one
+//   resident wave (a power of two of blocks per tower, so power-of-two
+//   lane counts split evenly over the warps).
 
+namespace cg = cooperative_groups;
+
+constexpr int kPaperMaxCluster = 8;      // portable cluster sizes only
+constexpr int kPaperWideLanes = 8192;    // lanes from which the wide form runs
+constexpr int kPaperWideWarps = 8;
+constexpr int kPaperChunk = 8;           // 16-byte loads per array in flight
+// the wide form's loads in flight per thread: a chunk of a (and of b),
+// issued one chunk ahead of its arithmetic; the fastest of the chunk
+// sizes tried on the H100 (PERF.md)
+constexpr int kPaperWideChunkA = 16;
+constexpr int kPaperWideChunkAB = 8;
+
+struct PaperArgs {
+  const int64_t* a0;
+  const int64_t* a1;
+  const int64_t* b0;
+  const int64_t* b1;
+  const int64_t* cek_rev;
+  const int64_t* qs;
+  int64_t sa0, sa1, sb0, sb1;            // lane strides (elements)
+  int64_t scale;
+  int64_t* out;
+  int64_t lanes;
+};
+
+// threads of a split block: n / (2 S) vectors of 2 coefficients per
+// block, one per thread up to 128 threads, at least one warp
+__host__ __device__ constexpr int split_threads(int n, int S) {
+  return n / (2 * S) < 32 ? 32 : (n / (2 * S) > 128 ? 128 : n / (2 * S));
+}
+
+__device__ __forceinline__ uint64_t warp_sum(uint64_t x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_down_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// the Barrett-reduced terms of one 16-byte vector (two coefficients)
 template <bool HAS_B>
-__global__ void eval_paper_kernel(
-    const int64_t* __restrict__ a0, int64_t sa0,
-    const int64_t* __restrict__ a1, int64_t sa1,
-    const int64_t* __restrict__ b0, int64_t sb0,
-    const int64_t* __restrict__ b1, int64_t sb1,
-    const int64_t* __restrict__ cek_rev, const int64_t* __restrict__ qs,
-    int64_t scale, int64_t* __restrict__ out, int K, int n) {
-  const int64_t r = blockIdx.x;
-  __shared__ uint64_t red[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int k = 0; k < K; ++k) {
-    const uint32_t q = (uint32_t)qs[k];
-    const uint64_t m = barrett_m(q);
-    const int64_t* x = a1 + r * sa1 + (int64_t)k * n;
-    const int64_t* y = HAS_B ? b1 + r * sb1 + (int64_t)k * n : nullptr;
-    const int64_t* c = cek_rev + (int64_t)k * n;
-    uint64_t acc = 0;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint32_t d = HAS_B ? submod((uint32_t)x[i], (uint32_t)y[i], q)
-                               : (uint32_t)x[i];
-      acc += mulmod(d, (uint32_t)c[i], q, m);
+__device__ __forceinline__ uint64_t vec_terms(longlong2 x, longlong2 y,
+                                              longlong2 w, uint32_t q,
+                                              uint64_t m) {
+  const uint32_t dx = HAS_B ? submod((uint32_t)x.x, (uint32_t)y.x, q)
+                            : (uint32_t)x.x;
+  const uint32_t dy = HAS_B ? submod((uint32_t)x.y, (uint32_t)y.y, q)
+                            : (uint32_t)x.y;
+  return (uint64_t)mulmod(dx, (uint32_t)w.x, q, m) +
+         mulmod(dy, (uint32_t)w.y, q, m);
+}
+
+// scale * d0 + sum, mod q: the lane's residue
+template <bool HAS_B>
+__device__ __forceinline__ int64_t finish(uint32_t x0, uint32_t y0,
+                                          uint64_t sum, int64_t scale,
+                                          uint32_t q, uint64_t m) {
+  const uint32_t d0 = HAS_B ? submod(x0, y0, q) : x0;
+  const uint32_t scaled = mulmod(d0, (uint32_t)((uint64_t)scale % q), q, m);
+  return (int64_t)reduce((uint64_t)scaled + reduce(sum, q, m), q, m);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// grid (lanes * S, K), clusters of (S, 1, 1): block (r * S + rank, k) sums
+// the coefficients [rank n/S, (rank + 1) n/S) of lane r, tower k.
+template <int N, int S, bool HAS_B>
+__global__ void __launch_bounds__(split_threads(N, S))
+    eval_paper_split(const PaperArgs p) {
+  constexpr int T = split_threads(N, S);
+  constexpr int P = N / (2 * S * T);        // vectors per thread and array
+  constexpr int CH = P < kPaperChunk ? P : kPaperChunk;
+  static_assert(P >= 1 && P % CH == 0, "whole chunks of whole vectors");
+  __shared__ uint64_t wsum[T / 32];
+  __shared__ uint64_t part[S];
+  // every block of the cluster has started once this barrier completes;
+  // it is waited on only before the partials cross blocks
+  if constexpr (S > 1) cluster_arrive_relaxed();
+  const int rank = (int)(blockIdx.x % S);
+  const int64_t r = blockIdx.x / S;
+  const int k = blockIdx.y;
+  const bool head = rank == 0 && threadIdx.x == 0;
+  uint32_t x0 = 0, y0 = 0;
+  if (head) {
+    x0 = (uint32_t)p.a0[r * p.sa0 + (int64_t)k * N];
+    if (HAS_B) y0 = (uint32_t)p.b0[r * p.sb0 + (int64_t)k * N];
+  }
+  const uint32_t q = (uint32_t)p.qs[k];
+  const uint64_t m = barrett_m(q);
+  const int64_t first = rank * (N / (2 * S)) + threadIdx.x;   // vector
+  const longlong2* x =
+      reinterpret_cast<const longlong2*>(p.a1 + r * p.sa1 + (int64_t)k * N) +
+      first;
+  const longlong2* y =
+      HAS_B ? reinterpret_cast<const longlong2*>(p.b1 + r * p.sb1 +
+                                                 (int64_t)k * N) + first
+            : nullptr;
+  const longlong2* w =
+      reinterpret_cast<const longlong2*>(p.cek_rev + (int64_t)k * N) + first;
+  uint64_t acc = 0;
+#pragma unroll
+  for (int c = 0; c < P / CH; ++c) {
+    longlong2 xv[CH], yv[CH], wv[CH];
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int v = (c * CH + j) * T;
+      xv[j] = __ldg(x + v);
+      if (HAS_B) yv[j] = __ldg(y + v);
+      wv[j] = __ldg(w + v);
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) red[warp] = acc;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      uint64_t s = 0;
-      for (int w = 0; w < (int)((blockDim.x + 31) >> 5); ++w) s += red[w];
-      const uint32_t x0 = (uint32_t)a0[r * sa0 + (int64_t)k * n];
-      const uint32_t d0 =
-          HAS_B ? submod(x0, (uint32_t)b0[r * sb0 + (int64_t)k * n], q) : x0;
-      const uint32_t scaled = mulmod(d0, (uint32_t)((uint64_t)scale % q), q, m);
-      out[r * K + k] = (int64_t)reduce((uint64_t)scaled + reduce(s, q, m),
-                                       q, m);
-    }
-    __syncthreads();
+    for (int j = 0; j < CH; ++j)
+      acc += vec_terms<HAS_B>(xv[j], HAS_B ? yv[j] : xv[j], wv[j], q, m);
   }
+  acc = warp_sum(acc);
+  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  uint64_t block = 0;
+  if (threadIdx.x == 0)
+#pragma unroll
+    for (int i = 0; i < T / 32; ++i) block += wsum[i];
+  if constexpr (S > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster_wait();
+    if (threadIdx.x == 0) *cluster.map_shared_rank(&part[rank], 0) = block;
+    cluster.sync();                 // release the stores, acquire them
+    if (!head) return;
+    block = 0;
+#pragma unroll
+    for (int i = 0; i < S; ++i) block += part[i];
+  } else if (!head) {
+    return;
+  }
+  p.out[r * gridDim.y + k] = finish<HAS_B>(x0, y0, block, p.scale, q, m);
+}
+
+// grid (G, K), blocks of kPaperWideWarps warps; dynamic shared memory: N
+// int64, tower k of rev(cek).  Warp w of block g takes lanes g W + w,
+// (g + G) W + w, ...
+template <int N, bool HAS_B>
+__global__ void __launch_bounds__(32 * kPaperWideWarps)
+    eval_paper_wide(const PaperArgs p) {
+  constexpr int V = N / 64;                 // vectors per thread and lane
+  constexpr int CW = HAS_B ? kPaperWideChunkAB : kPaperWideChunkA;
+  constexpr int CH = V < CW ? V : CW;
+  static_assert(V % CH == 0, "whole chunks");
+  extern __shared__ __align__(16) int64_t cek_s[];
+  const int k = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t* ck = p.cek_rev + (int64_t)k * N;
+  for (int i = threadIdx.x; i < N / 2; i += blockDim.x)
+    cp_async16(cek_s + 2 * i, ck + 2 * i);
+  cp_async_commit();
+  const uint32_t q = (uint32_t)p.qs[k];
+  const uint64_t m = barrett_m(q);
+  cp_async_wait<0>();
+  __syncthreads();
+  const longlong2* w = reinterpret_cast<const longlong2*>(cek_s) + lane;
+  const int64_t step = (int64_t)gridDim.x * kPaperWideWarps;
+  int64_t r = (int64_t)blockIdx.x * kPaperWideWarps + warp;
+  if (r >= p.lanes) return;
+  const longlong2* a1 = reinterpret_cast<const longlong2*>(p.a1) + lane;
+  const longlong2* b1 =
+      HAS_B ? reinterpret_cast<const longlong2*>(p.b1) + lane : nullptr;
+  // chunk c of lane r: its CH vectors of a (and b) per thread
+  auto load = [&](int64_t rr, int c, longlong2 (&xs)[CH],
+                  longlong2 (&ys)[CH]) {
+    const int64_t xo = (rr * p.sa1 + (int64_t)k * N) / 2 + c * CH * 32;
+    const int64_t yo = (rr * p.sb1 + (int64_t)k * N) / 2 + c * CH * 32;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      xs[j] = __ldg(a1 + xo + j * 32);
+      if (HAS_B) ys[j] = __ldg(b1 + yo + j * 32);
+    }
+  };
+  auto head = [&](int64_t rr, uint32_t& x0, uint32_t& y0) {
+    if (lane == 0) {
+      x0 = (uint32_t)p.a0[rr * p.sa0 + (int64_t)k * N];
+      if (HAS_B) y0 = (uint32_t)p.b0[rr * p.sb0 + (int64_t)k * N];
+    }
+  };
+  auto terms = [&](int c, const longlong2 (&xs)[CH],
+                   const longlong2 (&ys)[CH]) {
+    uint64_t s = 0;
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+      s += vec_terms<HAS_B>(xs[j], HAS_B ? ys[j] : xs[j],
+                            w[(c * CH + j) * 32], q, m);
+    return s;
+  };
+  constexpr int NC = V / CH;                // chunks per lane
+  uint32_t x0 = 0, y0 = 0;
+  uint64_t acc = 0;
+  longlong2 xv[CH], yv[CH];
+  head(r, x0, y0);
+  // the warp's chunks in order over its lanes, each chunk's loads
+  // issued while the chunk before it is summed
+  load(r, 0, xv, yv);
+  for (int c = 0;;) {
+    const int cn = c + 1 == NC ? 0 : c + 1;
+    const int64_t rn = cn == 0 ? r + step : r;
+    longlong2 xn[CH], yn[CH];
+    if (rn < p.lanes) load(rn, cn, xn, yn);
+    acc += terms(c, xv, yv);
+    if (cn == 0) {
+      acc = warp_sum(acc);
+      if (lane == 0)
+        p.out[r * gridDim.y + k] = finish<HAS_B>(x0, y0, acc, p.scale, q, m);
+      if (rn >= p.lanes) break;
+      acc = 0;
+      head(rn, x0, y0);
+    }
+    r = rn;
+    c = cn;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      xv[j] = xn[j];
+      if (HAS_B) yv[j] = yn[j];
+    }
+  }
+}
+
+static int sm_count() {
+  static int sms = 0;                  // one card per process
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+template <int N, int S, bool HAS_B>
+static int launch_split(const PaperArgs& p, int K, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.lanes * S), (unsigned)K, 1);
+  cfg.blockDim = dim3(split_threads(N, S), 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = S > 1 ? 1 : 0;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, eval_paper_split<N, S, HAS_B>, p);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <int N, bool HAS_B>
+static int launch_wide(const PaperArgs& p, int K, cudaStream_t stream) {
+  constexpr int threads = 32 * kPaperWideWarps;
+  constexpr size_t smem = (size_t)N * sizeof(int64_t);
+  static int per_sm = 0;              // resident blocks per SM, once
+  if (per_sm == 0) {
+    cudaFuncSetAttribute(eval_paper_wide<N, HAS_B>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    int nb = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &nb, eval_paper_wide<N, HAS_B>, threads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (nb < 1) return (int)cudaErrorInvalidConfiguration;
+    per_sm = nb;
+  }
+  // one resident wave, a power of two of blocks per tower
+  long long g = (long long)per_sm * sm_count() / K;
+  long long pow2 = 1;
+  while (2 * pow2 <= g) pow2 *= 2;
+  const long long need = (p.lanes + kPaperWideWarps - 1) / kPaperWideWarps;
+  const unsigned G = (unsigned)(pow2 < need ? pow2 : need);
+  eval_paper_wide<N, HAS_B><<<dim3(G, (unsigned)K), threads, smem, stream>>>(
+      p);
+  return (int)cudaGetLastError();
+}
+
+// the cluster size for a small lane set: the smallest S with lanes x K x S
+// blocks filling two waves of the card, at most kPaperMaxCluster and at
+// most n / 64 (a block keeps at least one vector per thread of a warp)
+static int pick_split(long long lanes, int K, int n) {
+  const long long units = lanes * K, want = 2LL * sm_count();
+  int S = 1;
+  while (2 * S <= kPaperMaxCluster && 2 * S <= n / 64 && units * S < want)
+    S *= 2;
+  return S;
+}
+
+template <int N, bool HAS_B>
+static int launch_paper(const PaperArgs& p, int K, cudaStream_t stream) {
+  if (p.lanes >= kPaperWideLanes) return launch_wide<N, HAS_B>(p, K, stream);
+  switch (pick_split(p.lanes, K, N)) {
+    case 1:
+      return launch_split<N, 1, HAS_B>(p, K, stream);
+    case 2:
+      if constexpr (N / 64 >= 2) return launch_split<N, 2, HAS_B>(p, K, stream);
+      break;
+    case 4:
+      if constexpr (N / 64 >= 4) return launch_split<N, 4, HAS_B>(p, K, stream);
+      break;
+    case 8:
+      if constexpr (N / 64 >= 8) return launch_split<N, 8, HAS_B>(p, K, stream);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int N>
+static int launch_paper_n(const PaperArgs& p, bool has_b, int K,
+                          cudaStream_t stream) {
+  return has_b ? launch_paper<N, true>(p, K, stream)
+               : launch_paper<N, false>(p, K, stream);
 }
 
 // a0/a1: lane r's rows at r * sa0 / r * sa1 (elements), each K*n int64.
 // b0/b1: the same for the subtracted side, or both null (column form);
 // a stride of 0 repeats one polynomial for every lane.  cek_rev: [K, n].
-// out: [lanes, K] int64 residues.
-// Returns cudaGetLastError() after the launch (0 on success).
+// a1, b1 and cek_rev start on 16-byte boundaries and sa1, sb1 are even
+// (the kernels read them 16 bytes at a time).  n is one of the profiles'
+// ring degrees: 256, 512, 1,024, 4,096 or 16,384.  out: [lanes, K] int64
+// residues.  Returns the CUDA error of the launch (0 on success), or
+// cudaErrorInvalidValue for operands outside this contract.
 extern "C" int hades_eval_paper(
     const void* a0, long long sa0, const void* a1, long long sa1,
     const void* b0, long long sb0, const void* b1, long long sb1,
     const void* cek_rev, const void* qs, long long scale, void* out,
     long long lanes, int K, int n, void* stream) {
   if (lanes == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const unsigned grid = (unsigned)lanes;
-  if (b0 != nullptr && b1 != nullptr)
-    eval_paper_kernel<true><<<grid, kThreads, 0, s>>>(
-        (const int64_t*)a0, sa0, (const int64_t*)a1, sa1,
-        (const int64_t*)b0, sb0, (const int64_t*)b1, sb1,
-        (const int64_t*)cek_rev, (const int64_t*)qs, scale, (int64_t*)out,
-        K, n);
-  else if (b0 == nullptr && b1 == nullptr)
-    eval_paper_kernel<false><<<grid, kThreads, 0, s>>>(
-        (const int64_t*)a0, sa0, (const int64_t*)a1, sa1, nullptr, 0,
-        nullptr, 0, (const int64_t*)cek_rev, (const int64_t*)qs, scale,
-        (int64_t*)out, K, n);
-  else
+  const bool has_b = b0 != nullptr && b1 != nullptr;
+  if ((b0 == nullptr) != (b1 == nullptr) || K < 1 || K > 65535 ||
+      lanes < 0 || lanes > 0x7fffffffLL / kPaperMaxCluster)
     return (int)cudaErrorInvalidValue;
+  const uintptr_t align = (uintptr_t)a1 | (uintptr_t)cek_rev |
+                          (has_b ? (uintptr_t)b1 : 0);
+  if ((align & 15) || ((sa1 | (has_b ? sb1 : 0)) & 1))
+    return (int)cudaErrorInvalidValue;
+  const PaperArgs p = {(const int64_t*)a0, (const int64_t*)a1,
+                       (const int64_t*)b0, (const int64_t*)b1,
+                       (const int64_t*)cek_rev, (const int64_t*)qs,
+                       sa0, sa1, sb0, sb1, scale, (int64_t*)out, lanes};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n) {
+    case 256: return launch_paper_n<256>(p, has_b, K, s);
+    case 512: return launch_paper_n<512>(p, has_b, K, s);
+    case 1024: return launch_paper_n<1024>(p, has_b, K, s);
+    case 4096: return launch_paper_n<4096>(p, has_b, K, s);
+    case 16384: return launch_paper_n<16384>(p, has_b, K, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the lane count from which hades_eval_paper runs its wide form
+extern "C" int hades_paper_wide_lanes() { return kPaperWideLanes; }
+
+// ---------------------------------------------------------------------------
+// The launch floor: an empty kernel behind the same C interface, in the
+// same library.  kernels/timing.py launches it through ctypes exactly as
+// the wrappers launch the Evals, so its device time (back to back in a
+// CUDA graph) and its host time bound from below what any small launch of
+// the port costs.  No path launches it.
+
+__global__ void empty_kernel() {}
+
+extern "C" int hades_empty_launch(void* stream) {
+  empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -80,6 +80,12 @@ def intt(x: torch.Tensor, ring: R.Ring) -> torch.Tensor:
     return NK.ntt_br(x, ring, fwd=False)
 
 
+def negacyclic_mul(a: torch.Tensor, b: torch.Tensor,
+                   ring: R.Ring) -> torch.Tensor:
+    """a ⊛ b mod (x^n + 1, q) over [..., K, n] (`kernels.ntt`)."""
+    return NK.negacyclic_mul(a, b, ring)
+
+
 def gadget_tile_values(ks: KeySet, uniq: Ciphertext, sel, bounds0, bounds1,
                        row_offset: int, rows: int) -> torch.Tensor:
     """Centered gadget eval values [A, rows] of a row tile of a unique

@@ -733,3 +733,44 @@ def test_cuda_paper_eval_and_ntt_br_kernels_equal_plain(cuda):
         before["eval_coeff0_paper"] + 4
     assert _build.LAUNCHES["ntt_br_fwd"] == before["ntt_br_fwd"] + 2
     assert _build.LAUNCHES["ntt_br_inv"] == before["ntt_br_inv"] + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", ["test-bfv", "paper-bfv", "paper-ckks"])
+def test_cuda_paper_eval_edge_shapes_equal_plain(cuda, profile):
+    """The paper Eval kernel at its edges, byte-equal to the plain version
+    with one launch a call: lane counts that are multiples of no cluster
+    size (1, 3, 5, 127) and a wide set past 8,192 lanes, with b per lane,
+    one b for every lane (stride 0) and none (the column form at a
+    non-zero row offset), at test-bfv, paper-bfv and n = 16,384 (the
+    paper-ckks ring in paper mode); a ring degree the kernel is not built
+    for raises."""
+    p = torch_make_params(profile, mode="paper")
+    K, n = p.num_towers, p.n
+    qs = torch.tensor(p.qs, dtype=torch.int64, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(16)
+
+    def rand(*shape):
+        u = torch.randint(0, 1 << 62, shape + (K, n), generator=gen,
+                          device=cuda)
+        return u % qs[:, None]
+    wide = TCK.paper_wide_lanes() + 5
+    cek = rand()
+    a0, a1 = rand(wide + 7), rand(wide + 7)
+    b0, b1 = rand(wide), rand(wide)
+    cases = []
+    for B in (1, 3, 5, 127, wide):
+        cases += [(a0[:B], a1[:B], b0[:B], b1[:B]),
+                  (a0[:B], a1[:B], b0[:1], b1[:1]),
+                  (a0[7:7 + B], a1[7:7 + B], None, None)]
+    for x0, x1, y0, y1 in cases:
+        before = _build.LAUNCHES["eval_coeff0_paper"]
+        got = TCK.eval_coeff0_paper(x0, x1, cek, qs, p.scale, y0, y1)
+        assert _build.LAUNCHES["eval_coeff0_paper"] == before + 1
+        want = TCK.eval_coeff0_paper_plain(x0, x1, cek, qs, p.scale, y0, y1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (x1.shape[0], y1 is None)
+    with pytest.raises(ValueError, match="built for n"):
+        TCK.eval_coeff0_paper(a0[:3, :, :n // 2], a1[:3, :, :n // 2],
+                              cek[:, :n // 2], qs, p.scale)

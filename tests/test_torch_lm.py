@@ -10,9 +10,14 @@ engines.  Tolerance: max |port − reference| ≤ 1e-4 on logits of
 magnitude ~1 (float32; the reference runs under x64, so its RoPE
 positions are int64 before the float32 cast, and XLA and PyTorch sum
 the matmuls in different orders — both are float32 rounding, nothing
-more); greedy tokens must be equal.
+more); greedy tokens must be equal.  Reduced internlm2 and minitron
+(the same dense GQA code at other widths) take the float32 forward
+check; all three take the bfloat16 checks (`BF16_BLOCK_TOL`,
+`BF16_REL_TOL`).  Run as a script, the file prints those checks'
+readings.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -55,16 +60,44 @@ def _cfg_dict(cfg):
     return dataclasses.asdict(cfg)
 
 
-@pytest.fixture(scope="module")
-def model():
-    """The reduced smollm config, the reference's params and the same
-    params carried into the port."""
-    rcfg = RCFG.get_reduced(ARCH)
-    tcfg = TCFG.get_reduced(ARCH)
+# reduced dense GQA configs besides smollm: the same code, other widths
+DENSE_ARCHS = ("internlm2_20b", "minitron_8b")
+# bfloat16, port against reference, both on the CPU, as max |port -
+# reference| / max |reference| (`python tests/test_torch_lm.py` prints
+# every reading).  One block: 0.0051, one bfloat16 ulp of the output,
+# since torch's fused silu rounds once where jax.nn.silu rounds after
+# each of its steps.  The forward's logits: 0.0107 (smollm) and 0.0117
+# (internlm2, minitron); the reference's own scanned stack is 0.0107 and
+# 0.0098 from its stack run op by op (scan_layers=False), as XLA fuses
+# the scanned block and drops roundings.  Each limit is ~10x its
+# reading, and each control (a norm's first scale raised by 100 bfloat16
+# ulps) reads above it: 0.14-0.17 for the block, 0.12-0.18 the forward.
+BF16_BLOCK_TOL = 0.05
+BF16_REL_TOL = 0.1
+
+
+def _bf16(cfg):
+    return dataclasses.replace(cfg, param_dtype="bfloat16", dtype="bfloat16")
+
+
+@functools.lru_cache(maxsize=None)
+def _model(arch, bf16):
+    """(reference config, port config, reference params, port params) of
+    a reduced config, in float32 or bfloat16, the same weights in both."""
+    rcfg, tcfg = RCFG.get_reduced(arch), TCFG.get_reduced(arch)
+    if bf16:
+        rcfg, tcfg = _bf16(rcfg), _bf16(tcfg)
     rparams = RT.init_params(rcfg, jax.random.PRNGKey(0))
     tparams = TT.params_from_numpy(
         tcfg, jax.tree.map(np.asarray, rparams), device=CPU)
     return rcfg, tcfg, rparams, tparams
+
+
+@pytest.fixture(scope="module")
+def model():
+    """The reduced smollm config, the reference's params and the same
+    params carried into the port."""
+    return _model(ARCH, False)
 
 
 def _tokens(cfg, B, S, seed=1):
@@ -128,6 +161,91 @@ def test_forward_matches_reference(model):
     assert got.shape == (2, 32, tcfg.vocab_size)
     assert got.dtype == torch.float32
     _close(got, want)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_gqa_forward_matches_reference(arch):
+    """Reduced internlm2 and minitron through the float32 forward check."""
+    rcfg, tcfg, rparams, tparams = _model(arch, False)
+    toks = _tokens(tcfg, 2, 32)
+    want = RT.forward(rcfg, rparams, {"tokens": jnp.asarray(toks)})
+    got = TT.forward(tcfg, tparams, {"tokens": torch.as_tensor(toks)})
+    assert got.shape == (2, 32, tcfg.vocab_size)
+    _close(got, want)
+
+
+def _rel_err(got, want) -> float:
+    want = np.asarray(want.astype(jnp.float32), np.float64)
+    return float(np.max(np.abs(got.float().numpy() - want))
+                 / np.max(np.abs(want)))
+
+
+def _with_bumped(scale, run):
+    """run() with scale[0] raised by 100 bfloat16 ulps, then restored."""
+    w = float(scale[0])
+    try:
+        scale[0] = w + 100 * 2.0 ** (np.floor(np.log2(abs(w))) - 7)
+        return run()
+    finally:
+        scale[0] = w
+
+
+def _bf16_block_readings(arch) -> dict:
+    """One bfloat16 block (norms, attention, SwiGLU, residuals) of the
+    port against the reference's, run op by op; the control raises the
+    port's ln2 scale."""
+    rcfg, tcfg, rparams, tparams = _model(arch, True)
+    rp = jax.tree.map(lambda a: a[0], rparams["groups"]["b0"])
+    tp = TT.group_params(tparams["groups"]["b0"], 0)
+    x = _rand(2, 32, tcfg.d_model, seed=3)
+    want = RT._block_apply(rcfg, "attn", rp,
+                           jnp.asarray(x).astype(jnp.bfloat16), None)
+    run = lambda: TT._block_apply(tcfg, tp, torch.as_tensor(x).to(torch.bfloat16))
+    got = run()
+    assert got.dtype == torch.bfloat16
+    return {"block": _rel_err(got, want),
+            "block_control": _rel_err(
+                _with_bumped(tp["ln2"]["scale"], run), want)}
+
+
+def _bf16_forward_readings(arch) -> dict:
+    """The bfloat16 logits of the port against the reference's scanned
+    forward and its forward run op by op; the control raises the port's
+    final norm scale."""
+    rcfg, tcfg, rparams, tparams = _model(arch, True)
+    toks = _tokens(tcfg, 2, 32)
+    rbatch = {"tokens": jnp.asarray(toks)}
+    scanned = RT.forward(rcfg, rparams, rbatch)
+    op_by_op = RT.forward(dataclasses.replace(rcfg, scan_layers=False),
+                          rparams, rbatch)
+    run = lambda: TT.forward(tcfg, tparams, {"tokens": torch.as_tensor(toks)})
+    got = run()
+    assert got.dtype == torch.bfloat16
+    return {"forward": _rel_err(got, scanned),
+            "forward_vs_op_by_op": _rel_err(got, op_by_op),
+            "reference_scanned_vs_op_by_op": _rel_err(
+                torch.as_tensor(np.array(op_by_op.astype(jnp.float32))),
+                scanned),
+            "forward_control": _rel_err(
+                _with_bumped(tparams["final_norm"]["scale"], run), scanned)}
+
+
+@pytest.mark.parametrize("arch", (ARCH, *DENSE_ARCHS))
+def test_bf16_block_equals_reference(arch):
+    """In bfloat16 one block of the port equals the reference's within
+    BF16_BLOCK_TOL, and a control must exceed it."""
+    r = _bf16_block_readings(arch)
+    assert r["block"] <= BF16_BLOCK_TOL < r["block_control"], r
+
+
+@pytest.mark.parametrize("arch", (ARCH, *DENSE_ARCHS))
+def test_bf16_forward_matches_reference(arch):
+    """The bfloat16 forward of the port against the reference's, scanned
+    and op by op, on the CPU within BF16_REL_TOL, and a control that
+    must exceed it."""
+    r = _bf16_forward_readings(arch)
+    assert max(r["forward"], r["forward_vs_op_by_op"]) <= BF16_REL_TOL, r
+    assert r["forward_control"] > BF16_REL_TOL, r
 
 
 def test_prefill_and_decode_match_reference(model):
@@ -361,3 +479,10 @@ def test_gqa_swiglu_rope_rmsnorm_match_reference(model, kw):
     pos = np.arange(4, 14)
     _close(TL.rope(torch.as_tensor(h), torch.as_tensor(pos), 10_000.0),
            RL.rope(jnp.asarray(h), jnp.asarray(pos), 10_000.0))
+
+
+if __name__ == "__main__":
+    import json
+    for arch in (ARCH, *DENSE_ARCHS):
+        print(json.dumps({"arch": arch, **_bf16_block_readings(arch),
+                          **_bf16_forward_readings(arch)}))
