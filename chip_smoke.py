@@ -115,13 +115,40 @@ Phases, each printing one JSON line:
                plaintext; the gadget Eval and both multiplies against
                their plain versions at every shape the bridge launched
                them at, launch counts reconciled.
- 13. card    — the card's name and power limit (nvidia-smi), then one
+ 13. lm_family — minicpm3-4b (MLA), deepseek-moe-16b (MoE: 64 routed
+               + 2 shared experts, top-6, capacity 1.25),
+               recurrentgemma-9b (RG-LRU with local attention, window
+               2,048) and whisper-base (the encoder over 1,500 seeded
+               random frames, cross attention), each at its published
+               width and depth in bfloat16 with seeded weights and freed
+               before the next: the lm phase's traffic and decode trace;
+               float32 at full width and one layer group's depth
+               (recurrentgemma: 3 layers, so local attention is in it;
+               whisper: one encoder layer too), card against CPU under
+               LM_CPU_REL_TOL with the TF32 control above it, and
+               decode_step against forward (≤ 2e-2; a MoE at the
+               no-drop capacity E/k); deepseek-moe's expert ids card
+               against CPU (as `moe.route` returned them in the float32
+               prefills) and their share of dropped slots at capacity
+               1.25; whisper's serve pass again with zero
+               frames (the reference CLI's), whose tokens must differ.
+ 14. examples — the HADES examples on the card
+               (`repro_torch.examples`): the quickstart, the range query
+               at 2,048 hg38 rows (parts 1-5) and the trace smoke, each
+               answer against the plaintext and every trace check; every
+               distinct kernel call they made held against its plain
+               version on the examples' own operands (tolerance 0, n =
+               256 and 512), the checked launches reconciled with the
+               counts.
+ 15. card    — the card's name and power limit (nvidia-smi), then one
                {"kernels": [...]} line with every kernel's numbers (the
                n = 16,384 shapes as rows named with the profile).
 
 Launch counts are zeroed just before each path (serve, keymul, write,
-shard, join, loop, the lm bridge) and read just after; each path's
-kernels must have launched.  The last
+shard, join, loop, the lm bridge, the examples) and read just after;
+each path's kernels must have launched.  The LM families launch none
+of the kernels: their modules are plain PyTorch, as the reference's
+are plain JAX.  The last
 line is the device record.  Any failure raises: the script then exits
 non-zero without it, as it does with no CUDA device or without the
 repository beside it.  It imports nothing of JAX or of `repro`.
@@ -171,6 +198,13 @@ LM_DECODE_TOL = 2e-2        # tests/test_serve.py's decode vs forward
 LM_PROFILE = "paper-ckks"
 LM_CANDIDATES = 4096
 LM_TOPK = 8
+# the LM families beyond dense GQA, each at its published config, with
+# the smollm phase's traffic: MLA, MoE, RG-LRU with local attention, the
+# whisper encoder with cross attention
+LM_FAMILIES = ("minicpm3_4b", "deepseek_moe_16b", "recurrentgemma_9b",
+               "whisper_base")
+# the examples phase's hg38 rows (the range query's parts 2 and 4)
+EXAMPLE_ROWS = 2048
 
 # H100 SXM published memory rate (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -206,6 +240,9 @@ LOOP_KERNELS = ("eval_coeff0_paper", "negacyclic_mul_ntt", "negacyclic_mul",
                 "ntt_br_fwd")
 LM_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt", "negacyclic_mul",
               "ntt_br_fwd")
+# the examples run gadget and paper keygen, encryption and both Evals
+EXAMPLE_KERNELS = ("eval_coeff0_gadget", "eval_coeff0_paper",
+                   "negacyclic_mul_ntt", "negacyclic_mul", "ntt_br_fwd")
 
 
 def emit(obj) -> None:
@@ -2280,61 +2317,36 @@ def check_mul_shapes(ks, shapes: dict, seed: int, rate) -> dict:
     return {"tolerance": 0, "equal": eq, "shapes": out}
 
 
-def phase_lm(dev, rate) -> dict:
-    """The LM serve path at LM_ARCH's full width (bfloat16, seeded random
-    weights): 8 requests in batches of 4, prompt 32, 16 greedy tokens
-    (`launch/serve.serve_requests`).  Checks on the card: float32 prefill
-    against the port's CPU float32 run, decode_step against forward over
-    the grown sequence, the share of bfloat16 greedy tokens equal to the
-    float32 ones.  Then `examples/secure_topk_serving.py` at full size:
-    one request's last-token logits over LM_CANDIDATES token ids,
-    encrypted under LM_PROFILE gadget keys, `encrypted_topk` k = 8, each
-    pick within the CKKS tolerance of the plaintext k-th score; the
-    gadget Eval and both multiplies held against their plain versions at
-    every shape the bridge launched them at."""
-    import dataclasses
-
+def _serve_and_trace(cfg, params, prompts, dev, frames=None) -> dict:
+    """The LM serve path on the card: a warm-up batch, then LM_REQUESTS
+    requests in batches of LM_BATCH, LM_PROMPT tokens each, LM_GEN
+    greedy tokens (`launch/serve.serve_requests`; `frames` per request
+    for an encoder-decoder); then one batch's decode steps again under
+    torch.profiler (device busy time, kernels a step, the host's top
+    operations)."""
     import torch
-    from repro_torch import configs
-    from repro_torch.core import compare as C
-    from repro_torch.core import encrypt as E
-    from repro_torch.core.ckks import equality_tolerance
-    from repro_torch.core.keys import keygen
-    from repro_torch.core.params import make_params
-    from repro_torch.kernels import _build
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models import serve as SV
-    from repro_torch.models import transformer as T
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = (configs.get_reduced if LM_REDUCED else configs.get_config)(
-        LM_ARCH)
-    f32 = dataclasses.replace(cfg, param_dtype="float32", dtype="float32")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, gen, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(int(np.prod(a.shape)) for a in _leaves(params))
-    rng = np.random.default_rng(SEED + 41)
-    prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
-
-    # ---- serving: warm-up, then the measured pass ------------------------
-    serve_requests(cfg, params, prompts[:LM_BATCH], batch=LM_BATCH, gen=2)
+    serve_requests(cfg, params, prompts[:LM_BATCH], batch=LM_BATCH, gen=2,
+                   frames=None if frames is None else frames[:LM_BATCH])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out16 = serve_requests(cfg, params, prompts, batch=LM_BATCH,
-                           gen=LM_GEN)
+    out = serve_requests(cfg, params, prompts, batch=LM_BATCH, gen=LM_GEN,
+                         frames=frames)
     wall = time.perf_counter() - t0
-    lm_peak = torch.cuda.max_memory_allocated()
-    finite = bool(torch.isfinite(out16["logits"].float()).all())
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(out["logits"].float()).all())
     steps = (LM_REQUESTS // LM_BATCH) * (LM_GEN - 1)
-    step_ms = out16["decode_s"] / steps * 1e3
+    step_ms = out["decode_s"] / steps * 1e3
 
-    # ---- one batch's decode steps again, under torch.profiler -----------
-    logits, cache = SV.prefill(cfg, params, {"tokens": torch.as_tensor(
-        prompts[:LM_BATCH], dtype=torch.int32, device=dev)},
-        T_max=LM_PROMPT + LM_GEN)
+    inputs = {"tokens": torch.as_tensor(prompts[:LM_BATCH],
+                                        dtype=torch.int32, device=dev)}
+    if frames is not None:
+        inputs["frames"] = frames[:LM_BATCH]
+    logits, cache = SV.prefill(cfg, params, inputs,
+                               T_max=LM_PROMPT + LM_GEN)
     tok = torch.argmax(logits, -1).to(torch.int32)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2360,39 +2372,124 @@ def phase_lm(dev, rate) -> dict:
         "host_ms_by_op": {e.key[:60]: {"count": e.count,
                                        "self_ms": e.self_cpu_time_total / 1e3}
                           for e in host_ops[:8]}}
-    del logits, cache, tok, prof
+    return {"out": out, "wall_s": wall, "peak_mem_bytes": peak,
+            "finite": finite, "decode_step_ms": step_ms,
+            "tokens_per_s": LM_REQUESTS * LM_GEN / wall,
+            "decode_tokens_per_s": LM_REQUESTS * (LM_GEN - 1)
+            / out["decode_s"], "decode_trace": decode_trace}
 
-    # ---- float32: the card against the CPU, decode against forward -------
-    p32 = T.map_params(lambda a: a.float(), params)
-    toks = torch.as_tensor(prompts[:LM_BATCH], dtype=torch.int32)
-    got, _ = SV.prefill(f32, p32, {"tokens": toks.to(dev)})
-    # the control: the same prefill with TF32 matmuls must fail the limit
+
+def _f32_card_vs_cpu(f32, p32, inputs) -> dict:
+    """float32 prefill on the card against the same prefill on the CPU
+    (`inputs` on the host), as max |card − CPU| / max |CPU|; the control
+    is the card's prefill with TF32 matmuls, which must exceed the limit
+    LM_CPU_REL_TOL."""
+    import torch
+    from repro_torch.models import serve as SV
+    from repro_torch.models import transformer as T
+
+    dev = next(_leaves(p32)).device
+    on_dev = {k: v.to(dev) for k, v in inputs.items()}
+    got, _ = SV.prefill(f32, p32, on_dev)
     tf32_was = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        tf32, _ = SV.prefill(f32, p32, {"tokens": toks.to(dev)})
+        tf32, _ = SV.prefill(f32, p32, on_dev)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32_was
     cpu32 = T.map_params(lambda a: a.cpu(), p32)
-    want, _ = SV.prefill(f32, cpu32, {"tokens": toks})
+    want, _ = SV.prefill(f32, cpu32, inputs)
     del cpu32
     cpu_err = float((got.cpu() - want).abs().max())
-    cpu_rel = cpu_err / float(want.abs().max())
-    tf32_rel = float((tf32.cpu() - want).abs().max()) / float(
-        want.abs().max())
-    del tf32
-    logits, cache = SV.prefill(f32, p32, {"tokens": toks.to(dev)},
-                               T_max=LM_PROMPT + LM_DECODE_CHECK)
-    grown, dec_errs = toks.to(dev), []
+    scale = float(want.abs().max())
+    return {"max_abs_err": cpu_err, "rel_err": cpu_err / scale,
+            "tolerance_rel": LM_CPU_REL_TOL,
+            "tf32_control_rel_err": float((tf32.cpu() - want).abs().max())
+            / scale}
+
+
+def _decode_vs_forward(f32, p32, inputs) -> list:
+    """LM_DECODE_CHECK greedy float32 decode steps after a prefill of
+    `inputs` (on the card), each step's logits against `forward` over
+    the grown sequence: max |decode − forward| per step."""
+    import torch
+    from repro_torch.models import serve as SV
+    from repro_torch.models import transformer as T
+
+    toks = inputs["tokens"]
+    logits, cache = SV.prefill(f32, p32, inputs,
+                               T_max=toks.shape[1] + LM_DECODE_CHECK)
+    grown, errs = toks, []
     for _ in range(LM_DECODE_CHECK):
         nxt = torch.argmax(logits, -1).to(torch.int32)
         grown = torch.cat([grown, nxt[:, None]], 1)
         logits, cache = SV.decode_step(f32, p32, cache, nxt)
-        full = T.forward(f32, p32, {"tokens": grown})[:, -1]
-        dec_errs.append(float((full - logits).abs().max()))
+        full = T.forward(f32, p32, {**inputs, "tokens": grown})[:, -1]
+        errs.append(float((full - logits).abs().max()))
+    return errs
+
+
+def _require_lm(served, f32check, dec_errs) -> None:
+    require(served["finite"], "non-finite logits")
+    require(f32check["rel_err"] <= f32check["tolerance_rel"],
+            f"float32 card vs CPU: {f32check}")
+    require(f32check["tf32_control_rel_err"] > f32check["tolerance_rel"],
+            f"the TF32 control passes the float32 limit: {f32check}")
+    require(served["decode_trace"]["events"] > 0,
+            "the decode trace saw no kernel")
+    require(max(dec_errs) <= LM_DECODE_TOL,
+            f"decode_step vs forward: {dec_errs}")
+
+
+def phase_lm(dev, rate) -> dict:
+    """The LM serve path at LM_ARCH's full width (bfloat16, seeded random
+    weights): 8 requests in batches of 4, prompt 32, 16 greedy tokens
+    (`launch/serve.serve_requests`).  Checks on the card: float32 prefill
+    against the port's CPU float32 run, decode_step against forward over
+    the grown sequence, the share of bfloat16 greedy tokens equal to the
+    float32 ones.  Then `examples/secure_topk_serving.py` at full size:
+    one request's last-token logits over LM_CANDIDATES token ids,
+    encrypted under LM_PROFILE gadget keys, `encrypted_topk` k = 8, each
+    pick within the CKKS tolerance of the plaintext k-th score; the
+    gadget Eval and both multiplies held against their plain versions at
+    every shape the bridge launched them at."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import compare as C
+    from repro_torch.core import encrypt as E
+    from repro_torch.core.ckks import equality_tolerance
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.params import make_params
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import serve as SV
+    from repro_torch.models import transformer as T
+
+    cfg = (configs.get_reduced if LM_REDUCED else configs.get_config)(
+        LM_ARCH)
+    f32 = dataclasses.replace(cfg, param_dtype="float32", dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(np.prod(a.shape)) for a in _leaves(params))
+    rng = np.random.default_rng(SEED + 41)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+
+    served = _serve_and_trace(cfg, params, prompts, dev)
+    out16, decode_trace = served["out"], served["decode_trace"]
+
+    # ---- float32: the card against the CPU, decode against forward -------
+    p32 = T.map_params(lambda a: a.float(), params)
+    toks = torch.as_tensor(prompts[:LM_BATCH], dtype=torch.int32)
+    f32check = _f32_card_vs_cpu(f32, p32, {"tokens": toks})
+    dec_errs = _decode_vs_forward(f32, p32, {"tokens": toks.to(dev)})
     out32 = serve_requests(f32, p32, prompts, batch=LM_BATCH, gen=LM_GEN)
     greedy_share = float(np.mean(out32["tokens"] == out16["tokens"]))
-    del p32, cache, logits, full, got, want, out32
+    del p32, out32
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2451,15 +2548,13 @@ def phase_lm(dev, rate) -> dict:
         "params": n_params, "init_s": init_s,
         "requests": LM_REQUESTS, "batch": LM_BATCH, "prompt": LM_PROMPT,
         "gen": LM_GEN, "prefill_s": out16["prefill_s"],
-        "decode_s": out16["decode_s"], "wall_s": wall,
-        "tokens_per_s": LM_REQUESTS * LM_GEN / wall,
-        "decode_tokens_per_s": LM_REQUESTS * (LM_GEN - 1)
-        / out16["decode_s"],
-        "lm_peak_mem_bytes": lm_peak, "finite": finite,
-        "f32_card_vs_cpu": {"max_abs_err": cpu_err, "rel_err": cpu_rel,
-                            "tolerance_rel": LM_CPU_REL_TOL,
-                            "tf32_control_rel_err": tf32_rel},
-        "decode_step_ms": step_ms, "decode_trace": decode_trace,
+        "decode_s": out16["decode_s"], "wall_s": served["wall_s"],
+        "tokens_per_s": served["tokens_per_s"],
+        "decode_tokens_per_s": served["decode_tokens_per_s"],
+        "lm_peak_mem_bytes": served["peak_mem_bytes"],
+        "finite": served["finite"], "f32_card_vs_cpu": f32check,
+        "decode_step_ms": served["decode_step_ms"],
+        "decode_trace": decode_trace,
         "f32_decode_vs_forward": {"max_abs_err": dec_errs,
                                   "tolerance_abs": LM_DECODE_TOL},
         "bf16_greedy_equal_share": greedy_share,
@@ -2474,20 +2569,356 @@ def phase_lm(dev, rate) -> dict:
         "gadget_shapes": gadget, "mul_shapes": muls,
     }
     emit(out)
-    require(finite, "non-finite logits")
-    require(cpu_rel <= LM_CPU_REL_TOL,
-            f"float32 card vs CPU: relative error {cpu_rel}")
-    require(tf32_rel > LM_CPU_REL_TOL,
-            f"the TF32 control passes the float32 limit: {tf32_rel}")
-    require(decode_trace["events"] > 0, "the decode trace saw no kernel")
-    require(max(dec_errs) <= LM_DECODE_TOL,
-            f"decode_step vs forward: {dec_errs}")
+    _require_lm(served, f32check, dec_errs)
     require(topk_ok, f"encrypted top-{LM_TOPK} below the plaintext bound")
     require(gadget["equal"] and muls["equal"],
             "a kernel != plain at a paper-ckks shape")
     require(reconciled, f"launches {launches} != the recorded calls")
     require(all(launches[k] > 0 for k in LM_KERNELS),
             f"a kernel never launched on the bridge: {launches}")
+    return out
+
+
+def _reduced_depth(cfg, params):
+    """`cfg` and `params` cut to the first layer group (and a whisper
+    model's first encoder layer) at full width, in float32."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+
+    cut = {"encoder_layers": 1} if cfg.is_encoder_decoder else {}
+    f32 = dataclasses.replace(cfg, num_layers=cfg.group_size,
+                              param_dtype="float32", dtype="float32", **cut)
+    first = lambda tree: T.map_params(lambda a: a[:1].float(), tree)
+    p32 = {k: T.map_params(lambda a: a.float(), v)
+           for k, v in params.items() if k not in ("groups", "encoder")}
+    p32["groups"] = first(params["groups"])
+    if "encoder" in params:
+        p32["encoder"] = {
+            "groups": first(params["encoder"]["groups"]),
+            "final_norm": T.map_params(lambda a: a.float(),
+                                       params["encoder"]["final_norm"])}
+    return f32, p32
+
+
+def record_routes() -> tuple:
+    """Record the expert ids [T, k] of every `moe.route` call until
+    `stop()`, in call order (the MoE blocks reach it through the
+    module's global)."""
+    from repro_torch.models import moe as MOE
+    inner, ids = MOE.route, []
+
+    def recorded(*args, **kwargs):
+        res = inner(*args, **kwargs)
+        ids.append(res[0])
+        return res
+
+    def stop():
+        MOE.route = inner
+    MOE.route = recorded
+    return ids, stop
+
+
+def phase_lm_family(dev, arch: str, seed: int) -> dict:
+    """One LM family at its published width and depth in bfloat16
+    (seeded random weights; a whisper model also seeded random frames):
+    the serve path and its decode trace as the lm phase runs them
+    (`_serve_and_trace`).  Then, at full width and the depth of one
+    layer group (whisper: one encoder layer), in float32: prefill on the
+    card against the CPU with its TF32 control, decode_step against
+    forward (a MoE at the no-drop capacity E/k, since decode and forward
+    route different token counts); a MoE's expert ids on the card
+    against the CPU, as `moe.route` returned them in those float32
+    prefills, and their share of dropped slots at the config's capacity; whisper's serve pass again with the zero frames
+    the reference CLI feeds (the encoder then outputs zeros and the
+    cross attention adds nothing, so its tokens must differ)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    rng = np.random.default_rng(seed + 1)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+    frames = None
+    if cfg.frontend == "frames":
+        frames = torch.randn((LM_REQUESTS, cfg.encoder_seq, cfg.d_model),
+                             generator=gen, device=dev).to(torch.bfloat16)
+
+    served = _serve_and_trace(cfg, params, prompts, dev, frames)
+    out = {"phase": "lm_family", "arch": cfg.name, "family": cfg.family,
+           "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "d_model": cfg.d_model,
+           "params": sum(a.numel() for a in leaves),
+           "param_bytes": sum(a.numel() * a.element_size() for a in leaves),
+           "init_s": init_s, "requests": LM_REQUESTS, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "gen": LM_GEN,
+           "prefill_s": served["out"]["prefill_s"],
+           "decode_s": served["out"]["decode_s"],
+           **{k: served[k] for k in ("wall_s", "tokens_per_s",
+                                     "decode_tokens_per_s", "finite",
+                                     "peak_mem_bytes", "decode_step_ms",
+                                     "decode_trace")}}
+
+    f32, p32 = _reduced_depth(cfg, params)
+    toks = torch.as_tensor(prompts[:LM_BATCH], dtype=torch.int32)
+    inputs = {"tokens": toks}
+    if frames is not None:
+        inputs["frames"] = frames[:LM_BATCH].float().cpu()
+    routes, rstop = record_routes()
+    try:
+        out["f32_card_vs_cpu"] = {"layers": f32.num_layers,
+                                  **_f32_card_vs_cpu(f32, p32, inputs)}
+    finally:
+        rstop()
+    dec_cfg = f32
+    if cfg.num_experts:
+        dec_cfg = dataclasses.replace(
+            f32, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    dec_errs = _decode_vs_forward(dec_cfg, p32, {k: v.to(dev)
+                                                 for k, v in inputs.items()})
+    out["f32_decode_vs_forward"] = {
+        "layers": f32.num_layers, "max_abs_err": dec_errs,
+        "tolerance_abs": LM_DECODE_TOL,
+        "capacity_factor": dec_cfg.capacity_factor}
+    if cfg.num_experts:
+        # the prefills ran on the card in float32, with TF32, then on the
+        # CPU, each routing once a MoE block
+        L = len(routes) // 3
+        card, cpu = routes[:L], routes[2 * L:]
+        T_ = card[0].shape[0]
+        C = MOE._capacity(cfg, T_)
+        keep = torch.stack([MOE._dispatch(ids, cfg.num_experts, C)[1]
+                            for ids in card])
+        out["moe"] = {"blocks": L, "tokens": T_, "capacity": C,
+                      "capacity_factor": cfg.capacity_factor,
+                      "expert_ids_equal_share": float(np.mean(
+                          [(a.cpu() == b).float().mean().item()
+                           for a, b in zip(card, cpu)])),
+                      "dropped_slot_share": float(
+                          1.0 - keep.float().mean())}
+    del p32
+    if frames is not None:
+        zero = serve_requests(cfg, params, prompts, batch=LM_BATCH,
+                              gen=LM_GEN)
+        out["zero_frames"] = {
+            "finite": bool(torch.isfinite(zero["logits"].float()).all()),
+            "tokens_equal_share_vs_random_frames": float(np.mean(
+                zero["tokens"] == served["out"]["tokens"]))}
+    del params, leaves, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    _require_lm(served, out["f32_card_vs_cpu"], dec_errs)
+    if cfg.num_experts:
+        require(len(routes) == 3 * out["moe"]["blocks"] > 0,
+                f"moe.route calls in the three prefills: {len(routes)}")
+        require(out["moe"]["expert_ids_equal_share"] > 0.99,
+                f"expert ids, card vs CPU: {out['moe']}")
+    if "zero_frames" in out:
+        z = out["zero_frames"]
+        require(z["finite"] and z["tokens_equal_share_vs_random_frames"] < 1,
+                f"zero frames: {z}")
+    return out
+
+
+def _snapshot(x):
+    """A tensor copied into storage of its own at the same sizes and
+    strides (a broadcast operand keeps its zero stride): the span of
+    storage it reads, from its first element on; any other argument as
+    it is."""
+    import torch
+    if not isinstance(x, torch.Tensor):
+        return x
+    if x.numel() == 0:
+        return x.clone()
+    span = 1 + sum((d - 1) * st for d, st in zip(x.shape, x.stride()))
+    flat = x.as_strided((span,), (1,), x.storage_offset()).clone()
+    return flat.as_strided(x.shape, x.stride())
+
+
+def _arg_key(x):
+    """An argument as part of a call's key: a tensor by its layout, a
+    sequence by its values, a ring by its identity."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.stride(), str(x.dtype))
+    if isinstance(x, (list, tuple, np.ndarray)):
+        return tuple(np.asarray(x).ravel().tolist())
+    if x is None or isinstance(x, (int, float, bool, str)):
+        return x
+    return id(x)
+
+
+def _batch_rows(shape) -> int:
+    return int(np.prod(shape[:-2]))
+
+
+# each kernel wrapper with its plain version and, from its bound
+# arguments, the launch counter it adds to and the launches a call makes
+RECORDED_WRAPPERS = {
+    "eval_coeff0_gadget": ("cmp_eval", "eval_coeff0_gadget_plain",
+                           lambda a: ("eval_coeff0_gadget",
+                                      len(set(np.asarray(a["sel"]).tolist()))
+                                      if len(a["sel"]) and a["rows"] else 0)),
+    "eval_coeff0_paper": ("cmp_eval", "eval_coeff0_paper_plain",
+                          lambda a: ("eval_coeff0_paper",
+                                     int(a["a1"].shape[0] > 0))),
+    "negacyclic_mul": ("ntt", "negacyclic_mul_plain",
+                       lambda a: ("negacyclic_mul", int(0 < _batch_rows(
+                           np.broadcast_shapes(a["a"].shape,
+                                               a["b"].shape))))),
+    "negacyclic_mul_ntt": ("ntt", "negacyclic_mul_ntt_plain",
+                           lambda a: ("negacyclic_mul_ntt",
+                                      int(_batch_rows(a["a"].shape) > 0))),
+    "ntt_br": ("ntt", "ntt_br_plain",
+               lambda a: ("ntt_br_fwd" if a["fwd"] else "ntt_br_inv",
+                          int(_batch_rows(a["x"].shape) > 0))),
+}
+
+
+def record_calls() -> tuple:
+    """Record every call of the kernel wrappers (RECORDED_WRAPPERS) until
+    `stop()`: calls maps (wrapper, the key of each bound argument) to
+    [calls, launch counter, launches a call, the first call's arguments,
+    each tensor copied before the kernel ran].  Every module reaches a
+    kernel through its module's attribute."""
+    import importlib
+    import inspect
+    import threading
+
+    calls, lock, undo = {}, threading.Lock(), []
+    for name, (mod_name, _, launches) in RECORDED_WRAPPERS.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        inner = getattr(mod, name)
+        sig = inspect.signature(inner)
+
+        def recorded(*args, _inner=inner, _name=name, _sig=sig,
+                     _launches=launches, **kwargs):
+            bound = _sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            arg = bound.arguments
+            key = (_name, *(_arg_key(v) for v in arg.values()))
+            with lock:
+                if key not in calls:
+                    calls[key] = [0, *_launches(arg),
+                                  {k: _snapshot(v) for k, v in arg.items()}]
+            res = _inner(*args, **kwargs)
+            with lock:
+                calls[key][0] += 1
+            return res
+        setattr(mod, name, recorded)
+        undo.append((mod, name, inner))
+
+    def stop():
+        for mod, name, inner in undo:
+            setattr(mod, name, inner)
+    return calls, stop
+
+
+def check_calls(calls: dict, launches: dict) -> dict:
+    """Each kernel against its plain version at every distinct call
+    `record_calls` recorded, on that call's own arguments, tolerance 0,
+    reported by kernel and operand shapes; the recorded calls times their
+    launches reconciled with the path's launch counts."""
+    import importlib
+    import inspect
+
+    import torch
+
+    eq, groups, checked = True, {}, {k: 0 for k in launches}
+    for (name, *_), (n_calls, counter, per_call, arg) in calls.items():
+        mod_name, plain_name, _ = RECORDED_WRAPPERS[name]
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        plain = getattr(mod, plain_name)
+        takes = inspect.signature(plain).parameters
+        got = getattr(mod, name)(**arg)
+        want = plain(**{k: v for k, v in arg.items() if k in takes})
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        eq &= same
+        checked[counter] += n_calls * per_call
+        shapes = [list(v.shape) for v in arg.values()
+                  if isinstance(v, torch.Tensor)]
+        g = groups.setdefault((counter, str(shapes)), {
+            "kernel": counter, "shapes": shapes, "calls": 0, "distinct": 0,
+            "equal": True, "max_abs_err": 0})
+        g["calls"] += n_calls
+        g["distinct"] += 1
+        g["equal"] &= same
+        g["max_abs_err"] = max(g["max_abs_err"], max_abs_err(got, want))
+        del got, want
+    return {"tolerance": 0, "equal": eq, "by_shape": list(groups.values()),
+            "checked_launches": checked,
+            "launches_reconciled": checked == launches}
+
+
+def phase_examples(dev) -> dict:
+    """The HADES examples on the card (`repro_torch.examples`): the
+    quickstart, the range query at small rows (parts 1-5) and the trace
+    smoke; each checks its answers against the plaintext and raises on a
+    wrong one, the trace smoke returns its failed checks.  Launch counts
+    are zeroed before and read after: each kernel of EXAMPLE_KERNELS must
+    have launched.  Every kernel call is recorded (`record_calls`) and
+    each distinct one held against its plain version on the examples'
+    own operands, tolerance 0 (test-bfv n = 256, test-ckks n = 512),
+    the checked launches reconciled with the counts."""
+    import torch
+    from repro_torch.examples import encrypted_range_query, quickstart
+    from repro_torch.kernels import _build
+    from repro_torch.tools import trace_smoke
+
+    trace = ROOT / "build" / "trace_smoke.json"
+    trace.parent.mkdir(exist_ok=True)
+    device = ["--device", str(dev)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    calls, stop = record_calls()
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        qs = quickstart.main(device)
+        walls["quickstart_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        erq = encrypted_range_query.main(device + [
+            "--rows", str(EXAMPLE_ROWS),
+            "--index-rows", str(EXAMPLE_ROWS // 4),
+            "--shard-rows", str(EXAMPLE_ROWS)])
+        walls["range_query_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ts = trace_smoke.run(device + ["--out", str(trace)])
+        torch.cuda.synchronize()
+        walls["trace_smoke_s"] = time.perf_counter() - t0
+    finally:
+        stop()
+    launches = dict(_build.LAUNCHES)
+    checked = check_calls(calls, launches)
+    del calls
+    torch.cuda.empty_cache()
+    out = {"phase": "examples", "quickstart": qs, "range_query": erq,
+           "range_query_rows": EXAMPLE_ROWS,
+           "trace_smoke": {k: ts[k] for k in ("errors", "events", "batch")},
+           "walls": walls, "launches": launches, "kernels_vs_plain": checked}
+    emit(out)
+    require(not ts["errors"], f"trace smoke: {ts['errors']}")
+    require(all(launches[k] > 0 for k in EXAMPLE_KERNELS),
+            f"a kernel never launched in the examples: {launches}")
+    require(checked["equal"], "a kernel != plain at an example's call")
+    require(checked["launches_reconciled"],
+            f"launches {launches} != the checked calls "
+            f"{checked['checked_launches']}")
     return out
 
 
@@ -2546,6 +2977,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm = phase_lm(dev, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = [phase_lm_family(dev, arch, SEED + 50 + 10 * i)
+                for i, arch in enumerate(LM_FAMILIES)]
+    examples = phase_examples(dev)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           **{k: serve[k] for k in ("correct", "keygen_s", "encrypt_s",
                                    "serve_wall_s", "queries_per_s",
@@ -2580,7 +3016,20 @@ def main() -> int:
                  "topk_ok": lm["bridge"]["topk_ok"],
                  "walls": lm["bridge"]["walls"],
                  "ckks_shapes_equal": lm["gadget_shapes"]["equal"]
-                 and lm["mul_shapes"]["equal"]}})
+                 and lm["mul_shapes"]["equal"]},
+          "lm_families": {f["arch"]: {
+              "tokens_per_s": f["tokens_per_s"],
+              "decode_step_ms": f["decode_step_ms"],
+              "kernels_per_step": f["decode_trace"]["kernels_per_step"],
+              "f32_rel_err": f["f32_card_vs_cpu"]["rel_err"],
+              "tf32_control_rel_err": f["f32_card_vs_cpu"][
+                  "tf32_control_rel_err"],
+              "decode_err": max(f["f32_decode_vs_forward"]["max_abs_err"]),
+              "peak_mem_bytes": f["peak_mem_bytes"]} for f in families},
+          "examples": {"launches": examples["launches"],
+                       "walls": examples["walls"],
+                       **{k: examples["kernels_vs_plain"][k] for k in (
+                           "equal", "launches_reconciled")}}})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

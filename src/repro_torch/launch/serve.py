@@ -4,8 +4,9 @@ The port of `repro.launch.serve`.  Requests are grouped into fixed-size
 batches (the tail batch padded with copies of its first prompt, so every
 batch has one shape); each batch runs prefill once, then decodes
 greedily.  The CLI serves the architecture's reduced config, as the
-reference does; `serve_requests` takes any supported config (the dense
-GQA family) and parameter tree.
+reference does, with zero `frames` (whisper) or `patches` (llava)
+batches; `serve_requests` takes any supported config and parameter
+tree, and a whisper model's frames.
 
 Usage (on the card; `--device cpu` runs on the host):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
@@ -33,26 +34,46 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _pad_tail(chunk, batch: int):
+    """A tail batch padded with copies of its first entry."""
+    if len(chunk) == batch:
+        return chunk
+    pad = [chunk[:1]] * (batch - len(chunk))
+    if isinstance(chunk, torch.Tensor):
+        return torch.cat([chunk, *pad])
+    return np.concatenate([chunk, *pad])
+
+
 def serve_requests(cfg: ModelConfig, params, prompts: np.ndarray, *,
-                   batch: int, gen: int) -> Dict:
+                   batch: int, gen: int, frames=None) -> Dict:
     """Serve `prompts` [R, S] in batches of `batch`: prefill, then `gen`
-    greedy tokens each (the first from the prefill logits).  Returns the
-    generated tokens [R, gen] (host), the last batch's final logits, and
-    the prefill and decode walls (device work synchronized)."""
+    greedy tokens each (the first from the prefill logits).  `frames`
+    [R, F, d] (a tensor) are an encoder-decoder's inputs per request;
+    without them such a model gets zero frames, and a patches model zero
+    patches, as the reference CLI feeds.  Returns the generated tokens
+    [R, gen] (host), the last batch's final logits, and the prefill and
+    decode walls (device work synchronized)."""
     device = params["embed"].device
+    dt = getattr(torch, cfg.dtype)
     R, S = prompts.shape
     T_max = S + gen
     outputs, prefill_s, decode_s = [], 0.0, 0.0
     for i in range(0, R, batch):
-        chunk = prompts[i:i + batch]
-        if len(chunk) < batch:                 # pad the tail batch
-            chunk = np.concatenate(
-                [chunk, chunk[:1].repeat(batch - len(chunk), 0)])
-        tokens = torch.as_tensor(chunk, dtype=torch.int32, device=device)
+        tokens = torch.as_tensor(_pad_tail(prompts[i:i + batch], batch),
+                                 dtype=torch.int32, device=device)
+        inputs = {"tokens": tokens}
+        if cfg.frontend == "frames":
+            inputs["frames"] = (
+                torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                            dtype=dt, device=device) if frames is None
+                else _pad_tail(frames[i:i + batch], batch).to(device))
+        if cfg.frontend == "patches":
+            inputs["patches"] = torch.zeros(
+                (batch, cfg.num_patches, cfg.d_model), dtype=dt,
+                device=device)
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = SV.prefill(cfg, params, {"tokens": tokens},
-                                   T_max=T_max)
+        logits, cache = SV.prefill(cfg, params, inputs, T_max=T_max)
         tok = torch.argmax(logits, -1).to(torch.int32)
         _sync(device)
         t1 = time.perf_counter()

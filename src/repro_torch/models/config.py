@@ -2,8 +2,8 @@
 
 A config fully determines parameter shapes, the block pattern, the serving
 cache layout, and the analytic parameter counts.  A copy of
-`repro.models.config` (field for field); the port runs only the dense
-GQA family so far (`check_supported`).
+`repro.models.config` (field for field); the port runs every family
+but xLSTM and llava so far (`check_supported`).
 """
 from __future__ import annotations
 
@@ -151,30 +151,23 @@ class ModelConfig:
         return total - self.num_layers * inactive * 3 * d * e_ff
 
 
-# families and attention kinds the port does not run yet, each with the
-# ROADMAP.md item (queue 1, item 17) that ports it
+# families the port does not run yet, each with the ROADMAP.md item
+# (queue 1, item 17) that ports it
 _NOT_PORTED = {
-    "moe": "17b (MoE)",
-    "hybrid": "17c (RG-LRU, with 17a's local attention)",
     "ssm": "17d (xLSTM)",
-    "audio": "17e (whisper frontend, with 17a's cross attention)",
     "vlm": "17e (llava frontend)",
 }
+_PORTED_FAMILIES = ("dense", "moe", "hybrid", "audio")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, unless `cfg`
-    is a dense GQA model with only global attention blocks — the one
-    family the port runs (never a wrong path for the others)."""
+    """Raise NotImplementedError, naming the ROADMAP.md item, unless the
+    port runs `cfg`: the dense (GQA or MLA), MoE, hybrid (RG-LRU with
+    local attention) and audio (whisper encoder with cross attention)
+    families.  xLSTM and llava raise (never a wrong path)."""
     item = _NOT_PORTED.get(cfg.family)
-    if item is None and cfg.family != "dense":
+    if item is None and cfg.family not in _PORTED_FAMILIES:
         item = "17 (an unknown family)"
-    if item is None and cfg.attention != "gqa":
-        item = "17a (MLA attention)"
-    if item is None and (set(cfg.pattern) != {"attn"} or cfg.window
-                         or cfg.num_experts or cfg.is_encoder_decoder
-                         or cfg.frontend != "none"):
-        item = "17a (local, MLA and cross attention)"
     if item is not None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with {cfg.attention!r} "

@@ -1,7 +1,7 @@
-"""Shared neural layers of the dense family: init, RMSNorm, RoPE, chunked
-(flash-style) attention, GQA attention, SwiGLU FFN.
+"""Shared neural layers: init, RMSNorm, RoPE, chunked (flash-style)
+attention, GQA/MQA and MLA attention blocks, SwiGLU FFN.
 
-The port of the dense parts of `repro.models.layers`, as functions on
+The port of `repro.models.layers`, as functions on
 tensors over plain dict parameter trees with the reference's names (so a
 reference tree carries across leaf for leaf, `transformer.params_from_numpy`).
 The math mirrors the reference step for step: params in cfg.param_dtype,
@@ -207,6 +207,70 @@ def gqa_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         k = rope(k, torch.arange(T, device=x.device), cfg.rope_theta)
     o = flash_attention(q, repeat_kv(k, H // KV), repeat_kv(v, H // KV),
                         causal=causal, window=window, chunk=cfg.attn_chunk)
+    return o.reshape(B, S, H * hd) @ params["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLA attention block (MiniCPM3 / DeepSeek-V2 latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.hd
+    qr, kvr, rd = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    pdt = _pdt(cfg)
+    return {
+        "wq_down": dense_init(gen, d, qr, pdt),
+        "q_norm": rmsnorm_init(qr, pdt, gen.device),
+        "wq_up": dense_init(gen, qr, H * (hd + rd), pdt),
+        "wkv_down": dense_init(gen, d, kvr + rd, pdt),
+        "kv_norm": rmsnorm_init(kvr, pdt, gen.device),
+        "wk_up": dense_init(gen, kvr, H * hd, pdt),
+        "wv_up": dense_init(gen, kvr, H * hd, pdt),
+        "wo": dense_init(gen, H * hd, d, pdt),
+    }
+
+
+def mla_latent(params: dict, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compressed KV: (c_kv [B,S,kvr], k_rope [B,S,rd]), the decode cache."""
+    kvr = cfg.kv_lora_rank
+    down = x @ params["wkv_down"].to(_dt(cfg))
+    c_kv = rmsnorm(params["kv_norm"], down[..., :kvr], cfg.norm_eps)
+    k_rope = rope(down[..., kvr:][..., None, :],      # unit head axis
+                  positions, cfg.rope_theta)[..., 0, :]
+    return c_kv, k_rope
+
+
+def mla_queries(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    H, hd, rd = cfg.num_heads, cfg.hd, cfg.qk_rope_head_dim
+    dt = _dt(cfg)
+    cq = rmsnorm(params["q_norm"], x @ params["wq_down"].to(dt),
+                 cfg.norm_eps)
+    q = (cq @ params["wq_up"].to(dt)).reshape(B, S, H, hd + rd)
+    return q[..., :hd], rope(q[..., hd:], positions, cfg.rope_theta)
+
+
+def mla_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
+              ) -> torch.Tensor:
+    """Full-sequence MLA (prefill, forward): expand the latents and run
+    attention with KV = H on concat(nope, rope) dims (dk = hd + rd,
+    dv = hd)."""
+    B, S, _ = x.shape
+    H, hd, rd = cfg.num_heads, cfg.hd, cfg.qk_rope_head_dim
+    dt = _dt(cfg)
+    pos = torch.arange(S, device=x.device)
+    c_kv, k_rope = mla_latent(params, cfg, x, pos)
+    q_nope, q_rope = mla_queries(params, cfg, x, pos)
+    k_nope = (c_kv @ params["wk_up"].to(dt)).reshape(B, S, H, hd)
+    v = (c_kv @ params["wv_up"].to(dt)).reshape(B, S, H, hd)
+    q = torch.cat([q_nope, q_rope], dim=-1)                  # [B,S,H,hd+rd]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)],
+                  dim=-1)
+    o = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     return o.reshape(B, S, H * hd) @ params["wo"].to(dt)
 
 

@@ -2,7 +2,9 @@
 
 For each module a user imports from (`core`, `core.compare`, `db`,
 `db.executor`, `db.table`, `kernels.ops`, `db.shard.spec`,
-`launch.elastic`) and the classes `Table` and `ShardSpec`, every public
+`launch.elastic`, and the LM's `models.layers`, `models.moe`,
+`models.rglru`, `models.serve`, `models.transformer`) and the classes
+`Table` and `ShardSpec`, every public
 name of the reference must exist in the port, except the intended
 absences below, each with its reason.  A module's public names are
 those not starting with `_` that it defines, or, for a package, that it
@@ -36,7 +38,9 @@ from test_torch_db import _fixture
 jax.config.update("jax_enable_x64", True)
 
 MODULES = ("core", "core.compare", "db", "db.executor", "db.table",
-           "kernels.ops", "db.shard.spec", "launch.elastic")
+           "kernels.ops", "db.shard.spec", "launch.elastic",
+           "models.layers", "models.moe", "models.rglru", "models.serve",
+           "models.transformer")
 CLASSES = (("db.table", "Table"), ("db.shard.spec", "ShardSpec"))
 
 # (module or "module.Class", name) -> why the port has no such name
@@ -60,15 +64,26 @@ ABSENT = {
         "multi-GPU shard placement (ROADMAP.md queue 1, item 13b)",
     ("launch.elastic", "resume_plan"):
         "resumes training, which is not ported (ROADMAP.md queue 1, 17f)",
+    ("models.transformer", "loss_fn"):
+        "training, which is not ported (ROADMAP.md queue 1, 17f)",
 }
 # reference modules with no port module at all
 ABSENT_MODULES = {
     "kernels.ref": "the plain versions sit beside each port kernel as "
                    "`*_plain` (kernels/cmp_eval.py, kernels/ntt.py)",
+    "models.xlstm": "xLSTM (ROADMAP.md queue 1, 17d); llava (17e) has its "
+                    "modules, but `check_supported` refuses the vlm family",
 }
-# private, and so outside the diff, yet absent on purpose:
-# db/executor.py::_use_kernel, the engine switch; the port dispatches by
-# the device its tensors lie on
+# private, and so outside the diff, yet absent on purpose
+ABSENT_PRIVATE = {
+    ("db.executor", "_use_kernel"):
+        "the engine switch; the port dispatches by the device its tensors "
+        "lie on",
+    ("models.moe", "_moe_apply_ep"):
+        "expert parallelism under shard_map over a mesh: multi-GPU "
+        "placement (ROADMAP.md queue 1, 13b/17h); one card runs "
+        "`_moe_apply_global`",
+}
 
 
 def _public(mod) -> set:
@@ -107,14 +122,17 @@ def test_public_class_members_match_reference(module, cls):
 
 
 def test_absent_modules_and_core_exports():
-    """The modules of ABSENT_MODULES and the engine switch have no port
-    counterpart; `repro_torch.core` exports the reference's 14 names,
-    each the object its submodule defines."""
+    """The modules of ABSENT_MODULES and the names of ABSENT_PRIVATE have
+    no port counterpart; `repro_torch.core` exports the reference's 14
+    names, each the object its submodule defines."""
     for name in ABSENT_MODULES:
         importlib.import_module(f"repro.{name}")
         with pytest.raises(ModuleNotFoundError):
             importlib.import_module(f"repro_torch.{name}")
-    assert "_use_kernel" in vars(RX) and not hasattr(TX, "_use_kernel")
+    for module, name in ABSENT_PRIVATE:
+        assert name in vars(importlib.import_module(f"repro.{module}"))
+        assert not hasattr(importlib.import_module(f"repro_torch.{module}"),
+                           name)
     from repro import core as R
     from repro_torch import core as T
     names = {"HadesParams", "Profile", "make_params", "KeySet", "keygen",

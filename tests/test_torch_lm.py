@@ -132,11 +132,11 @@ def test_configs_equal_reference(arch):
 
 @pytest.mark.parametrize("arch", RCFG.ARCH_IDS)
 def test_unported_families_raise(arch):
-    """Only dense GQA runs; every other family raises NotImplementedError
-    naming its ROADMAP.md item, from every entry point."""
+    """Every family runs but xLSTM (17d) and llava (17e), which raise
+    NotImplementedError naming their ROADMAP.md item, from every entry
+    point."""
     cfg = TCFG.get_reduced(arch)
-    dense = (cfg.family == "dense" and cfg.attention == "gqa")
-    if dense:
+    if cfg.family not in ("ssm", "vlm"):
         check_supported(cfg)
         return
     gen = torch.Generator().manual_seed(0)
@@ -200,7 +200,9 @@ def _bf16_block_readings(arch) -> dict:
     x = _rand(2, 32, tcfg.d_model, seed=3)
     want = RT._block_apply(rcfg, "attn", rp,
                            jnp.asarray(x).astype(jnp.bfloat16), None)
-    run = lambda: TT._block_apply(tcfg, tp, torch.as_tensor(x).to(torch.bfloat16))
+    run = lambda: TT._block_apply(tcfg, "attn", tp,
+                                  torch.as_tensor(x).to(torch.bfloat16),
+                                  None)
     got = run()
     assert got.dtype == torch.bfloat16
     return {"block": _rel_err(got, want),
