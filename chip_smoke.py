@@ -118,21 +118,42 @@ Phases, each printing one JSON line:
  13. lm_family — minicpm3-4b (MLA), deepseek-moe-16b (MoE: 64 routed
                + 2 shared experts, top-6, capacity 1.25),
                recurrentgemma-9b (RG-LRU with local attention, window
-               2,048) and whisper-base (the encoder over 1,500 seeded
-               random frames, cross attention), each at its published
-               width and depth in bfloat16 with seeded weights and freed
-               before the next: the lm phase's traffic and decode trace;
-               float32 at full width and one layer group's depth
-               (recurrentgemma: 3 layers, so local attention is in it;
-               whisper: one encoder layer too), card against CPU under
-               LM_CPU_REL_TOL with the TF32 control above it, and
-               decode_step against forward (≤ 2e-2; a MoE at the
-               no-drop capacity E/k); deepseek-moe's expert ids card
-               against CPU (as `moe.route` returned them in the float32
-               prefills) and their share of dropped slots at capacity
-               1.25; whisper's serve pass again with zero
+               2,048), whisper-base (the encoder over 1,500 seeded
+               random frames, cross attention), xlstm-125m (mLSTM and
+               sLSTM alternating, their recurrent caches) and
+               llava-next-34b (60 layers, 68.8 GB of weights; prompts
+               of 576 + 32 tokens, the first 576 replaced by zero
+               patches), each at its published width and depth in
+               bfloat16 with seeded weights and freed before the next
+               (but minicpm3-4b at 31 of its 62 layers and
+               deepseek-moe-16b at 14 of 28, for the script's time, and
+               a family whose weights would not leave 10 GiB of the card
+               free at fewer layer groups; each cut printed as
+               "depth_cut"): the
+               lm phase's traffic and decode trace; float32 at full
+               width and one layer group's depth (recurrentgemma: 3
+               layers, so local attention is in it; whisper: one encoder
+               layer too; llava: 2 prompts with seeded random patches),
+               card against the CPU under LM_CPU_REL_TOL with the TF32
+               control above it, and decode_step against forward (≤
+               2e-2; a MoE at the no-drop capacity E/k); deepseek-moe's
+               expert ids card against CPU (as `moe.route` returned them
+               in the float32 prefills) and their share of dropped slots
+               at capacity 1.25; whisper's serve pass again with zero
                frames (the reference CLI's), whose tokens must differ.
- 14. examples — the HADES examples on the card
+ 14. train   — the training path: smollm-360m's published config (bf16
+               weights, f32 moments, remat per layer group) for 8 AdamW
+               steps at batch 8 x seq 256 through train_lib (each step's
+               loss, lr, grad norm and wall, tokens/s, peak memory, one
+               step under torch.profiler); the reference driver's
+               documented run (`launch/train`, train_100m, float32) for
+               80 steps, whose loss must fall; the same run crashed at
+               step 50 and resumed from its step-40 checkpoint, each
+               loss within 2e-4 relative of the uninterrupted run's;
+               float32 loss and gradients at full width and one layer,
+               card against CPU, with a TF32 control; the train_lm
+               example (checkpoint at the midpoint, resumed).
+ 15. examples — the HADES examples on the card
                (`repro_torch.examples`): the quickstart, the range query
                at 2,048 hg38 rows (parts 1-5) and the trace smoke, each
                answer against the plaintext and every trace check; every
@@ -140,15 +161,15 @@ Phases, each printing one JSON line:
                version on the examples' own operands (tolerance 0, n =
                256 and 512), the checked launches reconciled with the
                counts.
- 15. card    — the card's name and power limit (nvidia-smi), then one
+ 16. card    — the card's name and power limit (nvidia-smi), then one
                {"kernels": [...]} line with every kernel's numbers (the
                n = 16,384 shapes as rows named with the profile).
 
 Launch counts are zeroed just before each path (serve, keymul, write,
-shard, join, loop, the lm bridge, the examples) and read just after;
-each path's kernels must have launched.  The LM families launch none
-of the kernels: their modules are plain PyTorch, as the reference's
-are plain JAX.  The last
+shard, join, loop, the lm bridge, train, the examples) and read just
+after; each path's kernels must have launched.  The LM families and the
+training path launch none of the kernels: their modules are plain
+PyTorch, as the reference's are plain JAX.  The last
 line is the device record.  Any failure raises: the script then exits
 non-zero without it, as it does with no CUDA device or without the
 repository beside it.  It imports nothing of JAX or of `repro`.
@@ -199,10 +220,41 @@ LM_PROFILE = "paper-ckks"
 LM_CANDIDATES = 4096
 LM_TOPK = 8
 # the LM families beyond dense GQA, each at its published config, with
-# the smollm phase's traffic: MLA, MoE, RG-LRU with local attention, the
-# whisper encoder with cross attention
+# the smollm phase's traffic: MLA, MoE, RG-LRU with local attention,
+# xLSTM, the whisper encoder with cross attention, llava's patch prefix
+# (its prompt LM_PROMPT tokens past the 576 patches)
 LM_FAMILIES = ("minicpm3_4b", "deepseek_moe_16b", "recurrentgemma_9b",
-               "whisper_base")
+               "whisper_base", "xlstm_125m", "llava_next_34b")
+# cuts of an earlier path's depth that keep the script's time (printed
+# with the phase as "depth_cut"): the two deepest earlier families at
+# half their layers (a decode trace's processing grows with its kernels)
+LM_FAMILY_LAYERS = {"minicpm3_4b": 31, "deepseek_moe_16b": 14}
+# card memory a family's bf16 weights leave free for its caches, the
+# float32 one-group check (llava: 5.9 GB) and activations; a family
+# whose weights would leave less is cut to fewer layer groups (printed)
+LM_FAMILY_HEADROOM = 10 * 2**30
+# the training path: smollm-360m's published config (bf16 weights, f32
+# moments, remat) for TRAIN_FULL_STEPS steps at batch x seq through
+# train_lib; then the reference driver's documented run (train_100m)
+# through launch/train for TRAIN_STEPS steps, whose mean loss over its
+# last 5 steps must lie TRAIN_LOSS_MARGIN below that of its first 5;
+# the same run crashed at TRAIN_FAIL_AT (checkpoints every
+# TRAIN_CKPT_EVERY) and resumed, its losses within TRAIN_RESUME_RTOL of
+# the uninterrupted run's (tests/test_fault_tolerance.py's bound);
+# float32 loss and gradients at full width and one layer, card vs CPU
+# (relative error of the loss, relative norm of the gradients'
+# difference) under TRAIN_F32_REL_TOL with a TF32 control above it;
+# the train_lm example at TRAIN_EXAMPLE_STEPS steps
+TRAIN_ARCH = "smollm_360m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_FULL_STEPS = 8
+TRAIN_STEPS = 80
+TRAIN_LOSS_MARGIN = 0.5
+TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 50, 20
+TRAIN_RESUME_RTOL = 2e-4
+TRAIN_F32_BATCH, TRAIN_F32_SEQ = 2, 64
+TRAIN_F32_REL_TOL = 1e-5        # ~7x the reading, 1.41e-6 (H100)
+TRAIN_EXAMPLE_STEPS = 40
 # the examples phase's hg38 rows (the range query's parts 2 and 4)
 EXAMPLE_ROWS = 2048
 
@@ -217,6 +269,9 @@ INT32_LANES_PER_SM = 64
 # dense INT8 tensor-core operations per second of one H100 SXM (NVIDIA
 # data sheet, without sparsity, at 700 W): the gadget Eval's u8 product
 INT8_TC_OPS_PER_S = 1979e12
+# dense bf16 tensor-core FLOP/s of one H100 SXM (the same data sheet):
+# the training step's matmuls
+BF16_TC_FLOP_PER_S = 989e12
 
 
 # the kernels each driven path must launch: keygen's a*sk is the multiply
@@ -2319,9 +2374,10 @@ def check_mul_shapes(ks, shapes: dict, seed: int, rate) -> dict:
 
 def _serve_and_trace(cfg, params, prompts, dev, frames=None) -> dict:
     """The LM serve path on the card: a warm-up batch, then LM_REQUESTS
-    requests in batches of LM_BATCH, LM_PROMPT tokens each, LM_GEN
+    requests in batches of LM_BATCH (the prompts' length each), LM_GEN
     greedy tokens (`launch/serve.serve_requests`; `frames` per request
-    for an encoder-decoder); then one batch's decode steps again under
+    for an encoder-decoder, zero patches for a patches model); then one
+    batch's decode steps again under
     torch.profiler (device busy time, kernels a step, the host's top
     operations)."""
     import torch
@@ -2345,8 +2401,12 @@ def _serve_and_trace(cfg, params, prompts, dev, frames=None) -> dict:
                                         dtype=torch.int32, device=dev)}
     if frames is not None:
         inputs["frames"] = frames[:LM_BATCH]
+    if cfg.frontend == "patches":         # as serve_requests feeds them
+        inputs["patches"] = torch.zeros(
+            (LM_BATCH, cfg.num_patches, cfg.d_model),
+            dtype=getattr(torch, cfg.dtype), device=dev)
     logits, cache = SV.prefill(cfg, params, inputs,
-                               T_max=LM_PROMPT + LM_GEN)
+                               T_max=prompts.shape[1] + LM_GEN)
     tok = torch.argmax(logits, -1).to(torch.int32)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2601,6 +2661,30 @@ def _reduced_depth(cfg, params):
     return f32, p32
 
 
+def _fit_depth(cfg, layers=None):
+    """`cfg` cut to `layers` (a cut of an earlier path's depth), or to
+    the most layer groups whose weights leave LM_FAMILY_HEADROOM of the
+    card's free memory, whichever is fewer; and the cut, or None."""
+    import dataclasses
+
+    import torch
+
+    free = torch.cuda.mem_get_info()[0]
+    emb = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    per_layer = (cfg.param_count() - emb) / cfg.num_layers
+    itemsize = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    fit = int(((free - LM_FAMILY_HEADROOM) / itemsize - emb) // per_layer)
+    n = min(cfg.num_layers, layers or cfg.num_layers,
+            fit - fit % cfg.group_size)
+    if n == cfg.num_layers:
+        return cfg, None
+    why = ("the script's time" if layers and n == layers
+           else "the card's memory")
+    return dataclasses.replace(cfg, num_layers=n), {
+        "layers": n, "published_layers": cfg.num_layers, "for": why,
+        "free_bytes": free}
+
+
 def record_routes() -> tuple:
     """Record the expert ids [T, k] of every `moe.route` call until
     `stop()`, in call order (the MoE blocks reach it through the
@@ -2621,17 +2705,23 @@ def record_routes() -> tuple:
 
 def phase_lm_family(dev, arch: str, seed: int) -> dict:
     """One LM family at its published width and depth in bfloat16
-    (seeded random weights; a whisper model also seeded random frames):
-    the serve path and its decode trace as the lm phase runs them
-    (`_serve_and_trace`).  Then, at full width and the depth of one
-    layer group (whisper: one encoder layer), in float32: prefill on the
-    card against the CPU with its TF32 control, decode_step against
-    forward (a MoE at the no-drop capacity E/k, since decode and forward
-    route different token counts); a MoE's expert ids on the card
-    against the CPU, as `moe.route` returned them in those float32
-    prefills, and their share of dropped slots at the config's capacity; whisper's serve pass again with the zero frames
-    the reference CLI feeds (the encoder then outputs zeros and the
-    cross attention adds nothing, so its tokens must differ)."""
+    (seeded random weights; a whisper model also seeded random frames; a
+    llava model's prompts LM_PROMPT tokens past its patches, which the
+    serve path feeds as zeros): the serve path and its decode trace as
+    the lm phase runs them (`_serve_and_trace`).  A family whose weights
+    would not leave LM_FAMILY_HEADROOM free on the card, or one listed in
+    LM_FAMILY_LAYERS, runs at fewer layer groups (`_fit_depth`, printed
+    as "depth_cut").  Then, at full width and the depth of one layer
+    group (whisper: one encoder layer), in float32: prefill on the card
+    against the CPU with its TF32 control (llava: 2 prompts, seeded
+    random patches), decode_step against forward (a MoE at the no-drop
+    capacity E/k, since decode and forward route different token
+    counts); a MoE's expert ids on the card against the CPU, as
+    `moe.route` returned them in those float32 prefills, and their share
+    of dropped slots at the config's capacity; whisper's serve pass
+    again with the zero frames the reference CLI feeds (the encoder then
+    outputs zeros and the cross attention adds nothing, so its tokens
+    must differ)."""
     import dataclasses
 
     import torch
@@ -2641,7 +2731,8 @@ def phase_lm_family(dev, arch: str, seed: int) -> dict:
     from repro_torch.models import transformer as T
 
     t_phase = time.perf_counter()
-    cfg = configs.get_config(arch)
+    cfg, depth_cut = _fit_depth(configs.get_config(arch),
+                                LM_FAMILY_LAYERS.get(arch))
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
@@ -2650,7 +2741,9 @@ def phase_lm_family(dev, arch: str, seed: int) -> dict:
     init_s = time.perf_counter() - t0
     leaves = list(_leaves(params))
     rng = np.random.default_rng(seed + 1)
-    prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+    prompt = LM_PROMPT + (cfg.num_patches if cfg.frontend == "patches"
+                          else 0)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, prompt))
     frames = None
     if cfg.frontend == "frames":
         frames = torch.randn((LM_REQUESTS, cfg.encoder_seq, cfg.d_model),
@@ -2659,11 +2752,11 @@ def phase_lm_family(dev, arch: str, seed: int) -> dict:
     served = _serve_and_trace(cfg, params, prompts, dev, frames)
     out = {"phase": "lm_family", "arch": cfg.name, "family": cfg.family,
            "dtype": cfg.dtype, "layers": cfg.num_layers,
-           "d_model": cfg.d_model,
+           "depth_cut": depth_cut, "d_model": cfg.d_model,
            "params": sum(a.numel() for a in leaves),
            "param_bytes": sum(a.numel() * a.element_size() for a in leaves),
            "init_s": init_s, "requests": LM_REQUESTS, "batch": LM_BATCH,
-           "prompt": LM_PROMPT, "gen": LM_GEN,
+           "prompt": prompt, "gen": LM_GEN,
            "prefill_s": served["out"]["prefill_s"],
            "decode_s": served["out"]["decode_s"],
            **{k: served[k] for k in ("wall_s", "tokens_per_s",
@@ -2672,10 +2765,16 @@ def phase_lm_family(dev, arch: str, seed: int) -> dict:
                                      "decode_trace")}}
 
     f32, p32 = _reduced_depth(cfg, params)
-    toks = torch.as_tensor(prompts[:LM_BATCH], dtype=torch.int32)
+    # a patches model's 608-token prompts: 2 of them on the CPU side
+    n32 = 2 if cfg.frontend == "patches" else LM_BATCH
+    toks = torch.as_tensor(prompts[:n32], dtype=torch.int32)
     inputs = {"tokens": toks}
     if frames is not None:
-        inputs["frames"] = frames[:LM_BATCH].float().cpu()
+        inputs["frames"] = frames[:n32].float().cpu()
+    if cfg.frontend == "patches":
+        inputs["patches"] = torch.randn(
+            (n32, cfg.num_patches, cfg.d_model),
+            generator=torch.Generator().manual_seed(seed + 2))
     routes, rstop = record_routes()
     try:
         out["f32_card_vs_cpu"] = {"layers": f32.num_layers,
@@ -2731,6 +2830,240 @@ def phase_lm_family(dev, arch: str, seed: int) -> dict:
         z = out["zero_frames"]
         require(z["finite"] and z["tokens_equal_share_vs_random_frames"] < 1,
                 f"zero frames: {z}")
+    return out
+
+
+def _grads_card_vs_cpu(cfg, params, batch) -> dict:
+    """float32 loss_fn and its gradients on the card (`params` there)
+    against the same on the CPU, and the card's with TF32 matmuls (the
+    control): the loss's relative error and the gradients' relative
+    global norm of the difference, ||g_card - g_cpu|| / ||g_cpu||."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_lib as TL
+
+    def norm(tree):
+        return float(torch.sqrt(sum(torch.sum(g.double().cpu() ** 2)
+                                    for g in _leaves(tree))))
+
+    def diff(loss, grads):
+        return {"loss_rel_err": abs(float(loss) - float(want_loss))
+                / abs(float(want_loss)),
+                "grad_rel_norm": norm(T.map_params(
+                    lambda a, b: a.cpu() - b, grads, want)) / norm(want)}
+
+    dev = next(_leaves(params)).device
+    on_dev = {k: v.to(dev) for k, v in batch.items()}
+    got = TL.value_and_grad(cfg, params, on_dev)
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = TL.value_and_grad(cfg, params, on_dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    want_loss, want = TL.value_and_grad(
+        cfg, T.map_params(lambda a: a.cpu(), params), batch)
+    return {"loss": float(want_loss), **diff(*got),
+            "tf32_control": diff(*tf32), "tolerance_rel": TRAIN_F32_REL_TOL}
+
+
+def phase_train(dev) -> dict:
+    """The training path (`train/`, `launch/train.py`, the train_lm
+    example) on the card:
+    (a) smollm-360m's published config (bf16 weights, f32 moments, remat
+        per layer group) for TRAIN_FULL_STEPS AdamW steps at TRAIN_BATCH
+        x TRAIN_SEQ on the synthetic stream through train_lib: each
+        step's loss, lr, grad norm and wall, tokens/s, peak memory; one
+        more step under torch.profiler (kernels a step, device busy
+        share, the host's top operations);
+    (b) the reference driver's documented run, `launch/train.main` on
+        train_100m (float32) for TRAIN_STEPS steps: the loss must fall
+        (tests/test_training.py's criterion, TRAIN_LOSS_MARGIN);
+    (c) the same run with --fail-at-step TRAIN_FAIL_AT and checkpoints
+        every TRAIN_CKPT_EVERY steps (under build/, removed after), then
+        --resume auto: every loss within TRAIN_RESUME_RTOL of (b)'s;
+    (d) float32 loss and gradients at smollm-360m's width and one layer,
+        card against CPU, under TRAIN_F32_REL_TOL, the TF32 control
+        above it;
+    (e) the train_lm example at TRAIN_EXAMPLE_STEPS steps (midpoint
+        checkpoint, resumed to the end): its loss must fall.
+    No kernel of the four lies on this path (its products are PyTorch
+    matmuls, as the reference's are XLA's); the launch counts are read
+    around it all the same."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.train import data as DATA
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_lib as TL
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    out: dict = {"phase": "train"}
+
+    # ---- (a) the published config at full width -------------------------
+    cfg = configs.get_config(TRAIN_ARCH)
+    tcfg = TL.TrainConfig(opt=OPT.OptimizerConfig(
+        warmup_steps=2, total_steps=TRAIN_FULL_STEPS + 1))
+    dcfg = DATA.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = TL.init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(
+        SEED + 90), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = TL.make_train_step(cfg, tcfg)
+    batches = [{k: v.to(dev) for k, v in b.items()} for _, b in
+               zip(range(TRAIN_FULL_STEPS + 1), DATA.batches(dcfg))]
+    steps = []
+    for b in batches[:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        steps.append({"loss": loss, "lr": float(m["lr"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "s": time.perf_counter() - t0})
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[-1])
+        float(m["loss"])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    trace = _device_summary(prof, prof_wall, top=8)
+    host_ops = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)
+    n_params = sum(a.numel() for a in _leaves(state.params))
+    matmul_params = n_params - cfg.vocab_size * cfg.d_model  # no lookup
+    step_s = float(np.median([st["s"] for st in steps[1:]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # forward 2, backward 4 and the remat forward 2 FLOP per matmul
+    # parameter and token (attention scores not counted)
+    flop = 8 * matmul_params * tokens
+    out["full"] = {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "init_s": init_s, "steps": steps, "median_step_s": step_s,
+        "tokens_per_s": tokens / step_s, "peak_mem_bytes": peak,
+        "model_flop_per_step": flop,
+        "bf16_bound_ms": flop / BF16_TC_FLOP_PER_S * 1e3,
+        "finite": all(np.isfinite(st["loss"]) for st in steps),
+        "profiled_step": {
+            "wall_s": prof_wall, **trace,
+            "host_ms_by_op": {e.key[:60]: {"count": e.count,
+                                           "self_ms":
+                                           e.self_cpu_time_total / 1e3}
+                              for e in host_ops[:8]}}}
+    del state, batches, step_fn, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(out["full"]["finite"], f"non-finite loss: {steps}")
+    require(trace["events"] > 0, "the training trace saw no kernel")
+
+    # ---- (b) the reference driver's documented run ---------------------
+    argv = ["--arch", TRAIN_ARCH, "--variant", "train_100m", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+            str(TRAIN_STEPS), "--log-every", "10", "--device", str(dev)]
+    t0 = time.perf_counter()
+    straight = LT.main(argv)
+    losses = straight["losses"]
+    out["driver"] = {
+        "variant": "train_100m", "steps": TRAIN_STEPS,
+        "seconds": time.perf_counter() - t0,
+        "median_step_s": float(np.median(straight["step_s"][1:])),
+        "first5_mean": float(np.mean(losses[:5])),
+        "last5_mean": float(np.mean(losses[-5:])),
+        "margin": TRAIN_LOSS_MARGIN, "losses": losses}
+    out["driver"]["tokens_per_s"] = (TRAIN_BATCH * TRAIN_SEQ
+                                     / out["driver"]["median_step_s"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) crash and resume ------------------------------------------
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ck = ["--ckpt-dir", str(ckpt), "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+    t0 = time.perf_counter()
+    crashed = None
+    try:
+        LT.main(argv + ck + ["--fail-at-step", str(TRAIN_FAIL_AT)])
+    except RuntimeError as e:
+        crashed = str(e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = LT.main(argv + ck + ["--resume", "auto"])
+    start = resumed["start_step"]
+    rel = (np.abs(np.array(resumed["losses"]) - np.array(losses[start:]))
+           / np.abs(np.array(losses[start:])))
+    out["resume"] = {
+        "fail_at": TRAIN_FAIL_AT, "crashed": crashed, "start_step": start,
+        "steps_run": resumed["steps_run"],
+        "checkpoints_kept": sorted(p.name for p in ckpt.iterdir()),
+        "ckpt_bytes": sum(f.stat().st_size for f in
+                          (ckpt / f"step_{TRAIN_STEPS:08d}").iterdir()),
+        "max_rel_diff": float(rel.max()), "rtol": TRAIN_RESUME_RTOL,
+        "seconds": time.perf_counter() - t0}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) float32 card vs CPU at full width, one layer --------------
+    f32 = dataclasses.replace(cfg, num_layers=cfg.group_size,
+                              param_dtype="float32", dtype="float32")
+    p32 = T.init_params(f32, torch.Generator(device=dev).manual_seed(
+        SEED + 91), device=dev)
+    batch = DATA.synthetic_batch(dataclasses.replace(
+        dcfg, global_batch=TRAIN_F32_BATCH, seq_len=TRAIN_F32_SEQ), 0)
+    out["f32_card_vs_cpu"] = {"layers": f32.num_layers,
+                              **_grads_card_vs_cpu(f32, p32, batch)}
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) the train_lm example ---------------------------------------
+    t0 = time.perf_counter()
+    ex = train_lm.main(["--steps", str(TRAIN_EXAMPLE_STEPS), "--device",
+                        str(dev)])
+    out["train_lm"] = {"steps": TRAIN_EXAMPLE_STEPS,
+                       "improved": ex["improved"],
+                       "first_loss": ex["resumed"]["first_loss"],
+                       "last_loss": ex["resumed"]["last_loss"],
+                       "resumed_from": ex["resumed"]["start_step"],
+                       "seconds": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = dict(_build.LAUNCHES)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    d, r, f = out["driver"], out["resume"], out["f32_card_vs_cpu"]
+    require(d["last5_mean"] < d["first5_mean"] - TRAIN_LOSS_MARGIN,
+            f"the driver's loss did not fall: {d['first5_mean']} -> "
+            f"{d['last5_mean']}")
+    require(crashed is not None and "injected failure" in crashed,
+            f"the crash was not injected: {crashed}")
+    require(start == TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+            and r["steps_run"] == TRAIN_STEPS - start,
+            f"resume: {r}")
+    require(r["max_rel_diff"] <= TRAIN_RESUME_RTOL,
+            f"the resumed losses left the uninterrupted run's: {r}")
+    require(max(f["loss_rel_err"], f["grad_rel_norm"])
+            <= TRAIN_F32_REL_TOL, f"float32 card vs CPU: {f}")
+    require(f["tf32_control"]["grad_rel_norm"] > TRAIN_F32_REL_TOL,
+            f"the TF32 control passes the float32 limit: {f}")
+    require(ex["improved"], f"train_lm: {out['train_lm']}")
     return out
 
 
@@ -2981,6 +3314,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     families = [phase_lm_family(dev, arch, SEED + 50 + 10 * i)
                 for i, arch in enumerate(LM_FAMILIES)]
+    train = phase_train(dev)
     examples = phase_examples(dev)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           **{k: serve[k] for k in ("correct", "keygen_s", "encrypt_s",
@@ -3025,7 +3359,20 @@ def main() -> int:
               "tf32_control_rel_err": f["f32_card_vs_cpu"][
                   "tf32_control_rel_err"],
               "decode_err": max(f["f32_decode_vs_forward"]["max_abs_err"]),
-              "peak_mem_bytes": f["peak_mem_bytes"]} for f in families},
+              "peak_mem_bytes": f["peak_mem_bytes"],
+              "depth_cut": f["depth_cut"]} for f in families},
+          "train": {
+              "full_step_s": train["full"]["median_step_s"],
+              "full_tokens_per_s": train["full"]["tokens_per_s"],
+              "full_peak_mem_bytes": train["full"]["peak_mem_bytes"],
+              "driver_loss": [train["driver"]["first5_mean"],
+                              train["driver"]["last5_mean"]],
+              "resume_max_rel_diff": train["resume"]["max_rel_diff"],
+              "f32": {k: train["f32_card_vs_cpu"][k] for k in (
+                  "loss_rel_err", "grad_rel_norm")},
+              "tf32_control_grad_rel_norm": train["f32_card_vs_cpu"][
+                  "tf32_control"]["grad_rel_norm"],
+              "train_lm_improved": train["train_lm"]["improved"]},
           "examples": {"launches": examples["launches"],
                        "walls": examples["walls"],
                        **{k: examples["kernels_vs_plain"][k] for k in (

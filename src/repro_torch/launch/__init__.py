@@ -1,2 +1,2 @@
-"""Launch drivers of the port: the LM serving driver (`serve`) and the
-elastic fleet monitor (`elastic`)."""
+"""Launch drivers of the port: the LM serving driver (`serve`), the
+training driver (`train`) and the elastic fleet monitor (`elastic`)."""

@@ -15,8 +15,8 @@ correct; the transport is deployment-specific.  `db.serve_loop.ServeLoop`
 heartbeats a `FleetMonitor` from every pump, so a stalled serving host
 goes dead by the same rule as a stalled training host.
 
-The port of `repro.launch.elastic` without `resume_plan`, which reads the
-training checkpoints (`train/`, not ported yet).
+The port of `repro.launch.elastic`; `resume_plan` reads the port's
+training checkpoints (`train/checkpoint.py`).
 """
 from __future__ import annotations
 
@@ -106,3 +106,13 @@ def plan_mesh(num_devices: int, model_parallel: int = 16
         model_parallel //= 2
     data = max(1, num_devices // model_parallel)
     return (data, model_parallel), ("data", "model")
+
+
+def resume_plan(ckpt_dir: str) -> Optional[dict]:
+    """What an elastic restart does: newest complete step + batch index."""
+    from repro_torch.train import checkpoint as CKPT
+    CKPT.clean_incomplete(ckpt_dir)
+    step = CKPT.latest_step(ckpt_dir)
+    if step is None:
+        return None
+    return {"restore_step": step, "next_batch_index": step}

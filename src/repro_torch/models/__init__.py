@@ -1,2 +1,3 @@
-"""LM substrate of the port: the dense GQA family (config, layers,
-transformer, serving caches) on PyTorch."""
+"""LM substrate of the port: every model family of the reference
+(config, layers, transformer, MoE, RG-LRU, xLSTM, serving caches) on
+PyTorch."""

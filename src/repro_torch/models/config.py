@@ -2,8 +2,8 @@
 
 A config fully determines parameter shapes, the block pattern, the serving
 cache layout, and the analytic parameter counts.  A copy of
-`repro.models.config` (field for field); the port runs every family
-but xLSTM and llava so far (`check_supported`).
+`repro.models.config` (field for field); `check_supported` admits
+every family of the reference and refuses an unknown one.
 """
 from __future__ import annotations
 
@@ -151,24 +151,15 @@ class ModelConfig:
         return total - self.num_layers * inactive * 3 * d * e_ff
 
 
-# families the port does not run yet, each with the ROADMAP.md item
-# (queue 1, item 17) that ports it
-_NOT_PORTED = {
-    "ssm": "17d (xLSTM)",
-    "vlm": "17e (llava frontend)",
-}
-_PORTED_FAMILIES = ("dense", "moe", "hybrid", "audio")
+_PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, unless the
-    port runs `cfg`: the dense (GQA or MLA), MoE, hybrid (RG-LRU with
-    local attention) and audio (whisper encoder with cross attention)
-    families.  xLSTM and llava raise (never a wrong path)."""
-    item = _NOT_PORTED.get(cfg.family)
-    if item is None and cfg.family not in _PORTED_FAMILIES:
-        item = "17 (an unknown family)"
-    if item is not None:
+    """Raise NotImplementedError unless `cfg` is of a family the port
+    runs: dense (GQA or MLA), MoE, hybrid (RG-LRU with local attention),
+    ssm (xLSTM), audio (whisper encoder with cross attention) and vlm
+    (the llava patch prefix).  An unknown family raises (never a wrong
+    path)."""
+    if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with {cfg.attention!r} "
-            f"attention is not ported yet (ROADMAP.md item {item})")
+            f"{cfg.name}: unknown family {cfg.family!r}")

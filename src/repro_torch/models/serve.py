@@ -10,10 +10,11 @@ exactly as `transformer.forward` does):
   local : k, v            [G, B, W, KV, hd]     ring buffer, W = window
   cross : ck, cv          [G, B, F, KV, hd]     whisper encoder K/V (static)
   rglru : conv [G,B,cw-1,w], h [G,B,w] (float32)
+  mlstm : C [G,B,H,hd,hd], n [G,B,H,hd], m [G,B,H]   (float32)
+  slstm : h/c/n/m         [G, B, w]                  (float32)
 
-`pos` is a device tensor (int32 scalar), so a decode step needs no host
-read of the position.  The xLSTM caches wait for their family
-(ROADMAP.md item 17d).
+The stabilizers `m` start at -1e30.  `pos` is a device tensor (int32
+scalar), so a decode step needs no host read of the position.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import transformer as TR
+from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig, check_supported
 
 Tree = Dict
@@ -38,7 +40,8 @@ Tree = Dict
 
 def _block_cache(cfg: ModelConfig, kind: str, B: int, T: int,
                  dt: torch.dtype) -> Dict[str, tuple]:
-    """The (shape, dtype) of each of a block's cache leaves."""
+    """The (shape, dtype) of each of a block's cache leaves, and the
+    fill value where it is not 0."""
     KV, hd = cfg.num_kv_heads, cfg.hd
     if kind == "attn":
         if cfg.attention == "mla":
@@ -57,6 +60,16 @@ def _block_cache(cfg: ModelConfig, kind: str, B: int, T: int,
         w = cfg.lru_width or cfg.d_model
         return {"conv": ((B, cfg.conv_width - 1, w), dt),
                 "h": ((B, w), torch.float32)}
+    f32 = torch.float32
+    if kind == "mlstm":
+        H = cfg.num_heads
+        hd = 2 * cfg.d_model // H
+        return {"C": ((B, H, hd, hd), f32), "n": ((B, H, hd), f32),
+                "m": ((B, H), f32, -1e30)}
+    if kind == "slstm":
+        w = cfg.d_model
+        return {"h": ((B, w), f32), "c": ((B, w), f32), "n": ((B, w), f32),
+                "m": ((B, w), f32, -1e30)}
     raise ValueError(kind)
 
 
@@ -68,8 +81,9 @@ def init_cache(cfg: ModelConfig, B: int, T_max: int, *,
     dt = L.torch_dtype(cfg.dtype)
     G = cfg.num_groups
     blocks = {
-        f"b{i}": {name: torch.zeros((G, *shape), dtype=ldt, device=device)
-                  for name, (shape, ldt) in
+        f"b{i}": {name: torch.full((G, *shape), fill[0] if fill else 0,
+                                   dtype=ldt, device=device)
+                  for name, (shape, ldt, *fill) in
                   _block_cache(cfg, kind, B, T_max, dt).items()}
         for i, kind in enumerate(cfg.pattern)}
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
@@ -203,6 +217,12 @@ def _block_step(cfg: ModelConfig, kind: str, p: Tree, x_t: torch.Tensor,
         x_t = x_t + o
         h = L.rmsnorm(p["ln2"], x_t, cfg.norm_eps)
         x_t = x_t + L.swiglu_apply(p["ffn"], h)
+    elif kind == "mlstm":
+        o, st = X.mlstm_block_step(p["cell"], cfg, h, X.MLstmState(**cache))
+        x_t, cache = x_t + o, st._asdict()
+    elif kind == "slstm":
+        o, st = X.slstm_block_step(p["cell"], cfg, h, X.SLstmState(**cache))
+        x_t, cache = x_t + o, st._asdict()
     else:
         raise ValueError(kind)
     return x_t, cache
@@ -305,6 +325,12 @@ def _block_prefill(cfg: ModelConfig, kind: str, p: Tree, x: torch.Tensor,
         cache["h"] = hh[:, -1].float()
         h4 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = x + L.swiglu_apply(p["ffn"], h4)
+    elif kind in ("mlstm", "slstm"):
+        prefill = (X.mlstm_block_prefill if kind == "mlstm"
+                   else X.slstm_block_prefill)
+        y, st = prefill(p["cell"], cfg, h)
+        x = x + y
+        cache = st._asdict()
     else:
         raise ValueError(kind)
     return x, cache

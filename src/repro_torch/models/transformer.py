@@ -1,14 +1,16 @@
-"""Config-driven model assembly: dense (GQA, MLA), MoE, hybrid (RG-LRU
-with local attention) and the whisper encoder-decoder.
+"""Config-driven model assembly for every family: dense (GQA, MLA), MoE,
+hybrid (RG-LRU with local attention), xLSTM, the whisper
+encoder-decoder and the llava patch prefix.
 
-The port of `repro.models.transformer` (`config.check_supported` raises,
-naming the ROADMAP.md item, for xLSTM and llava).  The layer stack is
-grouped by the config's block pattern (e.g. recurrentgemma's ("rglru",
-"rglru", "local")); the parameter tree keeps the reference's names and
-its stacked-groups layout: every per-layer leaf is stacked
-[num_groups, ...], and the stack loops over the groups where the
-reference scans them (`lax.scan`).  `params_from_numpy` carries a
-reference tree across, leaf for leaf.
+The port of `repro.models.transformer`.  The layer stack is grouped by
+the config's block pattern (e.g. recurrentgemma's ("rglru", "rglru",
+"local")); the parameter tree keeps the reference's names and its
+stacked-groups layout: every per-layer leaf is stacked [num_groups,
+...], and the stack loops over the groups where the reference scans
+them (`lax.scan`).  `params_from_numpy` carries a reference tree
+across, leaf for leaf.  `forward` runs without autograd; `loss_fn` runs
+the same stack with it, recomputing each group in the backward pass
+when `cfg.remat` is set (the reference's `jax.checkpoint` per group).
 
 Batch dict keys:
   tokens  [B, S] integer      — always present (decoder tokens for enc-dec)
@@ -23,11 +25,13 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ring import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
+from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig, check_supported
 
 Tree = Dict[str, Any]
@@ -55,6 +59,10 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Tree:
         p["rec"] = RG.rglru_init(gen, cfg)
         p["ln2"] = L.rmsnorm_init(d, pdt, gen.device)
         p["ffn"] = L.swiglu_init(gen, cfg)
+    elif kind == "mlstm":
+        p["cell"] = X.mlstm_init(gen, cfg)
+    elif kind == "slstm":
+        p["cell"] = X.slstm_init(gen, cfg)
     else:
         raise ValueError(kind)
     return p
@@ -112,7 +120,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     device), then moved to `device` (default: CUDA, as every entry point;
     pass "cpu" for the host).  Leaves in cfg.param_dtype, but the MoE
     router and the RG-LRU gates, which `moe_init` and `rglru_init` keep in
-    float32 as the reference does."""
+    float32 as the reference does (so do the xLSTM gates and the sLSTM's
+    recurrent weights)."""
     check_supported(cfg)
     device = resolve_device(device)
     d = cfg.d_model
@@ -134,11 +143,28 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     return map_params(lambda x: x.to(device), params)
 
 
-def map_params(fn, tree: Tree) -> Tree:
-    """Apply `fn` to every leaf of a parameter tree."""
+def map_params(fn, tree: Tree, *rest: Tree) -> Tree:
+    """Apply `fn` to every leaf of a parameter tree (with the same leaf
+    of each tree of `rest`, which share its structure)."""
     if isinstance(tree, dict):
-        return {k: map_params(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: map_params(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def named_leaves(tree, prefix: tuple = ()):
+    """(key path, leaf) of every leaf of a tree of dicts and named tuples,
+    in JAX's flatten order: dict keys sorted, named-tuple fields in
+    order, None an empty subtree."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    else:
+        return [(prefix, tree)]
+    return [leaf for k, v in items for leaf in named_leaves(v, prefix + (k,))]
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Tree, *, device=None) -> Tree:
@@ -196,6 +222,12 @@ def _block_apply(cfg: ModelConfig, kind: str, p: Tree, x: torch.Tensor,
         x = x + RG.block_apply(p["rec"], cfg, h)
         h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = x + L.swiglu_apply(p["ffn"], h)
+    elif kind == "mlstm":
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        x = x + X.mlstm_block_apply(p["cell"], cfg, h)
+    elif kind == "slstm":
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        x = x + X.slstm_block_apply(p["cell"], cfg, h)
     else:
         raise ValueError(kind)
     return x
@@ -205,9 +237,16 @@ def _run_stack(cfg: ModelConfig, groups: Tree, x: torch.Tensor,
                enc_out: Optional[torch.Tensor] = None,
                pattern: Optional[tuple] = None) -> torch.Tensor:
     pattern = pattern or cfg.pattern
-    for gp in iter_groups(cfg, groups):
+
+    def group(x, gp, enc_out):
         for i, kind in enumerate(pattern):
             x = _block_apply(cfg, kind, gp[f"b{i}"], x, enc_out)
+        return x
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for gp in iter_groups(cfg, groups):
+        x = (checkpoint(group, x, gp, enc_out, use_reentrant=False)
+             if remat else group(x, gp, enc_out))
     return x
 
 
@@ -247,10 +286,8 @@ def unembed(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
     return x @ w.to(L.torch_dtype(cfg.dtype))
 
 
-@torch.no_grad()
-def forward(cfg: ModelConfig, params: Tree,
+def _logits(cfg: ModelConfig, params: Tree,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """-> logits [B, S, V]."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     enc_out = (_encode(cfg, params, batch["frames"])
@@ -258,3 +295,29 @@ def forward(cfg: ModelConfig, params: Tree,
     x = _run_stack(cfg, params["groups"], x, enc_out=enc_out)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(cfg, params, x)
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: Tree,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """-> logits [B, S, V]."""
+    return _logits(cfg, params, batch)
+
+
+def loss_fn(cfg: ModelConfig, params: Tree,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token cross-entropy (f32 logsumexp), differentiable in the
+    params.  Under the patch frontend the first cfg.num_patches target
+    positions carry no target; as in the reference, that mask is one
+    row [1, S - 1], so the sum of the masked losses is divided by the
+    targets of one sequence, not of the batch."""
+    logits = _logits(cfg, params, batch).float()[:, :-1]
+    targets = batch["tokens"][:, 1:].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
+    mask = torch.ones(targets.shape, device=logits.device)
+    if cfg.frontend == "patches":
+        pos = torch.arange(targets.shape[1], device=logits.device)
+        mask = torch.where(pos[None, :] < cfg.num_patches, 0.0, 1.0)
+    ce = (lse - picked) * mask
+    return torch.sum(ce) / torch.clamp(torch.sum(mask), min=1.0)

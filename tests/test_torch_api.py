@@ -2,9 +2,11 @@
 
 For each module a user imports from (`core`, `core.compare`, `db`,
 `db.executor`, `db.table`, `kernels.ops`, `db.shard.spec`,
-`launch.elastic`, and the LM's `models.layers`, `models.moe`,
-`models.rglru`, `models.serve`, `models.transformer`) and the classes
-`Table` and `ShardSpec`, every public
+`launch.elastic`, the LM's `models.layers`, `models.moe`,
+`models.rglru`, `models.xlstm`, `models.serve`, `models.transformer`,
+and training's `train.optimizer`, `train.compress`, `train.data`,
+`train.checkpoint`, `train.train_lib` and `launch.train`) and the
+classes `Table` and `ShardSpec`, every public
 name of the reference must exist in the port, except the intended
 absences below, each with its reason.  A module's public names are
 those not starting with `_` that it defines, or, for a package, that it
@@ -39,8 +41,10 @@ jax.config.update("jax_enable_x64", True)
 
 MODULES = ("core", "core.compare", "db", "db.executor", "db.table",
            "kernels.ops", "db.shard.spec", "launch.elastic",
-           "models.layers", "models.moe", "models.rglru", "models.serve",
-           "models.transformer")
+           "models.layers", "models.moe", "models.rglru", "models.xlstm",
+           "models.serve", "models.transformer", "train.optimizer",
+           "train.compress", "train.data", "train.checkpoint",
+           "train.train_lib", "launch.train")
 CLASSES = (("db.table", "Table"), ("db.shard.spec", "ShardSpec"))
 
 # (module or "module.Class", name) -> why the port has no such name
@@ -62,17 +66,11 @@ ABSENT = {
         "multi-GPU shard placement (ROADMAP.md queue 1, item 13b)",
     ("db.shard.spec.ShardSpec", "placeable"):
         "multi-GPU shard placement (ROADMAP.md queue 1, item 13b)",
-    ("launch.elastic", "resume_plan"):
-        "resumes training, which is not ported (ROADMAP.md queue 1, 17f)",
-    ("models.transformer", "loss_fn"):
-        "training, which is not ported (ROADMAP.md queue 1, 17f)",
 }
 # reference modules with no port module at all
 ABSENT_MODULES = {
     "kernels.ref": "the plain versions sit beside each port kernel as "
                    "`*_plain` (kernels/cmp_eval.py, kernels/ntt.py)",
-    "models.xlstm": "xLSTM (ROADMAP.md queue 1, 17d); llava (17e) has its "
-                    "modules, but `check_supported` refuses the vlm family",
 }
 # private, and so outside the diff, yet absent on purpose
 ABSENT_PRIVATE = {

@@ -44,6 +44,27 @@ from test_torch_write import (_build_with_shared_jit, _jitted,
 
 jax.config.update("jax_enable_x64", True)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's ops while this module runs
+    (see tests/test_torch_examples.py: worker processes share the
+    cores)."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _clear_reference_spans():
+    """Leave the reference's tracer without spans after this module:
+    `RO.tracing()` keeps a region's spans for the caller to read, and
+    tests/test_obs.py expects none while tracing is off, whichever
+    module ran before it in the same worker."""
+    yield
+    RO.TRACER.clear()
+
 GRID = 0.25          # ckks float grid (>> test-ckks equality tolerance)
 EPS_BAND = 0.3       # captures exactly the ±1-grid-step neighbours
 N_LEFT, N_RIGHT = 21, 13

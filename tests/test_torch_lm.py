@@ -51,6 +51,28 @@ from test_torch_core import ct_to_torch, jitted_ref, n_
 
 jax.config.update("jax_enable_x64", True)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's ops while this module runs
+    (see tests/test_torch_examples.py: worker processes share the
+    cores)."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _unoptimized_reference_compiles():
+    """Compile the reference's programs without XLA's optimization
+    passes while this module runs (see tests/test_torch_join.py: nearly
+    all of its time is the reference compiling)."""
+    was = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", was)
+
 CPU = "cpu"
 TOL = 1e-4
 ARCH = "smollm_360m"
@@ -132,20 +154,35 @@ def test_configs_equal_reference(arch):
 
 @pytest.mark.parametrize("arch", RCFG.ARCH_IDS)
 def test_unported_families_raise(arch):
-    """Every family runs but xLSTM (17d) and llava (17e), which raise
-    NotImplementedError naming their ROADMAP.md item, from every entry
-    point."""
+    """Every family of the reference is admitted by every entry point
+    (its reduced config runs init_params, init_cache, forward, prefill,
+    decode_step and loss_fn on the CPU); the same config under an unknown
+    family raises NotImplementedError from each of them."""
     cfg = TCFG.get_reduced(arch)
-    if cfg.family not in ("ssm", "vlm"):
-        check_supported(cfg)
-        return
+    check_supported(cfg)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=CPU)
+    batch = {"tokens": torch.as_tensor(_tokens(cfg, 1, 6))}
+    if cfg.frontend == "frames":
+        batch["frames"] = torch.zeros((1, cfg.encoder_seq, cfg.d_model))
+    assert TSV.init_cache(cfg, 1, 8, device=CPU)["pos"].device.type == CPU
+    assert TT.forward(cfg, params, batch).shape == (1, 6, cfg.vocab_size)
+    logits, cache = TSV.prefill(cfg, params, batch, T_max=8)
+    logits, _ = TSV.decode_step(cfg, params, cache,
+                                torch.argmax(logits, -1).to(torch.int32))
+    assert bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(TT.loss_fn(cfg, params, batch)))
+
+    unknown = dataclasses.replace(cfg, family="unknown")
     gen = torch.Generator().manual_seed(0)
-    for call in (lambda: TT.init_params(cfg, gen, device=CPU),
-                 lambda: TSV.init_cache(cfg, 1, 4, device=CPU),
-                 lambda: TT.forward(cfg, {}, {"tokens": None}),
-                 lambda: TSV.prefill(cfg, {}, {"tokens": None}),
-                 lambda: TSV.decode_step(cfg, {}, {}, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 17"):
+    for call in (lambda: check_supported(unknown),
+                 lambda: TT.init_params(unknown, gen, device=CPU),
+                 lambda: TSV.init_cache(unknown, 1, 4, device=CPU),
+                 lambda: TT.forward(unknown, params, batch),
+                 lambda: TT.loss_fn(unknown, params, batch),
+                 lambda: TSV.prefill(unknown, params, batch),
+                 lambda: TSV.decode_step(unknown, params, cache, None)):
+        with pytest.raises(NotImplementedError, match="unknown family"):
             call()
 
 
@@ -333,6 +370,16 @@ def test_entry_points_default_to_cuda():
         TT.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TSV.init_cache(cfg, 1, 4)
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train as TLT
+    from repro_torch.train import train_lib as TTL
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TTL.init_state(cfg, TTL.TrainConfig(),
+                       torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TLT.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm.main(["--steps", "2"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,15 @@
-"""The port's MLA, MoE, hybrid (RG-LRU with local attention) and whisper
-families against the JAX reference.
+"""The port's MLA, MoE, hybrid (RG-LRU with local attention), xLSTM,
+whisper and llava families against the JAX reference.
 
-On the reduced minicpm3, deepseek-moe, qwen3-moe, recurrentgemma and
-whisper configs (float32) the reference's random parameter tree is
-carried across (`params_from_numpy`) and `forward`, `prefill` (logits
-and every cache leaf) and greedy `decode_step`s run on the same tokens
-(and, for whisper, the same seeded random frames) in both engines:
-max |port − reference| ≤ TOL = 1e-4 on values of magnitude ~1 (float32
-rounding: XLA and PyTorch sum in other orders, and the port's RG-LRU
-scan combines in another order than `lax.associative_scan`).  MoE
+On the reduced minicpm3, deepseek-moe, qwen3-moe, recurrentgemma, xlstm,
+whisper and llava configs (float32) the reference's random parameter
+tree is carried across (`params_from_numpy`) and `forward`, `prefill`
+(logits and every cache leaf) and greedy `decode_step`s run on the same
+tokens (and the same seeded random whisper frames or llava patches) in
+both engines: max |port − reference| ≤ TOL = 1e-4 on values of
+magnitude ~1 (float32 rounding: XLA and PyTorch sum in other orders, and
+the port's RG-LRU scan combines in another order than
+`lax.associative_scan`).  MoE
 routing is held exactly: expert ids and the dispatch `keep` mask,
 including a capacity that drops slots and probabilities that tie.  The
 layers are held function by function, and one bfloat16 forward per
@@ -34,6 +35,7 @@ from repro.models import moe as RMOE
 from repro.models import rglru as RRG
 from repro.models import serve as RSV
 from repro.models import transformer as RT
+from repro.models import xlstm as RX
 from repro_torch import configs as TCFG
 from repro_torch.launch import serve as TLS
 from repro_torch.models import layers as TL
@@ -41,6 +43,7 @@ from repro_torch.models import moe as TMOE
 from repro_torch.models import rglru as TRG
 from repro_torch.models import serve as TSV
 from repro_torch.models import transformer as TT
+from repro_torch.models import xlstm as TX
 from repro_torch.models.config import check_supported
 
 from test_torch_core import n_
@@ -51,10 +54,11 @@ jax.config.update("jax_enable_x64", True)
 CPU = "cpu"
 TOL = 1e-4
 FAMILIES = ("minicpm3_4b", "deepseek_moe_16b", "qwen3_moe_30b_a3b",
-            "recurrentgemma_9b", "whisper_base")
-# one bfloat16 forward per family (MLA, MoE, hybrid, audio)
+            "recurrentgemma_9b", "xlstm_125m", "whisper_base",
+            "llava_next_34b")
+# one bfloat16 forward per family (MLA, MoE, hybrid, ssm, audio, vlm)
 BF16_FAMILIES = ("minicpm3_4b", "deepseek_moe_16b", "recurrentgemma_9b",
-                 "whisper_base")
+                 "xlstm_125m", "whisper_base", "llava_next_34b")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -105,12 +109,16 @@ def _ref_fns(arch):
 
 
 def _batch(cfg, B, S, seed=1):
-    """Seeded tokens (and whisper frames) as (reference, port) batches."""
+    """Seeded tokens (and whisper frames or llava patches) as (reference,
+    port) batches."""
     rng = np.random.default_rng(seed)
     b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
     if cfg.frontend == "frames":
         b["frames"] = rng.standard_normal(
             (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "patches":
+        b["patches"] = rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
     return ({k: jnp.asarray(v) for k, v in b.items()},
             {k: torch.as_tensor(v) for k, v in b.items()})
 
@@ -156,16 +164,12 @@ def _layer0(arch, block="b0"):
 
 @pytest.mark.parametrize("arch", RCFG.ARCH_IDS)
 def test_full_configs_supported(arch):
-    """Every family but xLSTM (17d) and llava (17e) runs at its full
-    config; those two raise naming their ROADMAP.md item."""
+    """Every family runs at its full config, xLSTM and llava included;
+    an unknown family raises."""
     cfg = TCFG.get_config(arch)
-    if arch in ("xlstm_125m", "llava_next_34b"):
-        item = "17d" if arch == "xlstm_125m" else "17e"
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md item {item}"):
-            check_supported(cfg)
-    else:
-        check_supported(cfg)
+    check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        check_supported(dataclasses.replace(cfg, family="unknown"))
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +370,88 @@ def test_rglru_functions_match_reference():
         torch.bfloat16 and st.h.dtype == torch.float32
 
 
+def _state_close(got, want):
+    for name in want._fields:
+        assert getattr(got, name).dtype == torch.float32, name
+        _close(getattr(got, name), getattr(want, name))
+
+
+def test_mlstm_functions_match_reference():
+    """mlstm_chunkwise (chunk 8) over 13 tokens from the zero state, then
+    over 8 more from the state it carried (a padded last chunk both
+    times: i = -1e30, log f = 0), its outputs and states against the
+    reference; one call over all 21 tokens equal to the two; mlstm_step
+    token by token against the chunkwise form and the reference's step;
+    the block step."""
+    rcfg, tcfg, rp, tp = _layer0("xlstm_125m", "b0")
+    rp, tp = rp["cell"], tp["cell"]
+    assert tcfg.pattern[0] == "mlstm" and tcfg.attn_chunk == 8
+    u = _rand(2, 21, 2 * tcfg.d_model, seed=30)
+    r_chunk = jax.jit(lambda p, v, st: RX.mlstm_chunkwise(
+        p, rcfg, v, st, chunk=rcfg.attn_chunk))
+    chunk = lambda v, st=None: TX.mlstm_chunkwise(
+        tp, tcfg, torch.as_tensor(v), st, chunk=tcfg.attn_chunk)
+    rh1, rst1 = r_chunk(rp, jnp.asarray(u[:, :13]), None)
+    th1, tst1 = chunk(u[:, :13])
+    _close(th1, rh1)
+    _state_close(tst1, rst1)
+    rh2, rst2 = r_chunk(rp, jnp.asarray(u[:, 13:]), rst1)
+    th2, tst2 = chunk(u[:, 13:], tst1)
+    _close(th2, rh2)
+    _state_close(tst2, rst2)
+    th, tst = chunk(u)
+    _close(th, torch.cat([th1, th2], 1).numpy())
+    _state_close(tst, tst2)
+
+    r_step = _jit(RX.mlstm_step, rcfg)
+    st = TX.init_mlstm_state(tcfg, 2, u.shape[-1])
+    rst = RX.init_mlstm_state(rcfg, 2, u.shape[-1])
+    for t in range(u.shape[1]):
+        h_t, st = TX.mlstm_step(tp, tcfg, torch.as_tensor(u[:, t]), st)
+        _close(h_t, th[:, t].numpy())
+        if t < 3:
+            rh_t, rst = r_step(rp, jnp.asarray(u[:, t]), rst)
+            _close(h_t, rh_t)
+            _state_close(st, rst)
+    _state_close(st, tst)
+    x = _rand(2, tcfg.d_model, seed=31)
+    ry, rnew = _jit(RX.mlstm_block_step, rcfg)(rp, jnp.asarray(x), rst2)
+    ty, tnew = TX.mlstm_block_step(tp, tcfg, torch.as_tensor(x), tst2)
+    _close(ty, ry)
+    _state_close(tnew, rnew)
+
+
+def test_slstm_functions_match_reference():
+    """slstm_scan from the zero state and from a given one, the block's
+    forward and its one-token step against the reference; every state
+    leaf float32."""
+    rcfg, tcfg, rp, tp = _layer0("xlstm_125m", "b1")
+    rp, tp = rp["cell"], tp["cell"]
+    assert tcfg.pattern[1] == "slstm"
+    d = tcfg.d_model
+    x = _rand(2, 9, d, seed=32)
+    r_scan = jax.jit(lambda p, v, st: RX.slstm_scan(p, rcfg, v, st))
+    rh, rst = r_scan(rp, jnp.asarray(x), None)
+    th, tst = TX.slstm_scan(tp, tcfg, torch.as_tensor(x))
+    _close(th, rh)
+    _state_close(tst, rst)
+    given = [_rand(2, d, seed=33 + i) for i in range(4)]
+    given[2] = np.abs(given[2]) + 0.5                      # n > 0
+    rh, rst = r_scan(rp, jnp.asarray(x), RX.SLstmState(
+        *map(jnp.asarray, given)))
+    th, tst = TX.slstm_scan(tp, tcfg, torch.as_tensor(x), TX.SLstmState(
+        *map(torch.as_tensor, given)))
+    _close(th, rh)
+    _state_close(tst, rst)
+    _close(TX.slstm_block_apply(tp, tcfg, torch.as_tensor(x)),
+           _jit(RX.slstm_block_apply, rcfg)(rp, jnp.asarray(x)))
+    ry, rnew = _jit(RX.slstm_block_step, rcfg)(rp, jnp.asarray(x[:, 0]),
+                                                rst)
+    ty, tnew = TX.slstm_block_step(tp, tcfg, torch.as_tensor(x[:, 0]), tst)
+    _close(ty, ry)
+    _state_close(tnew, rnew)
+
+
 def test_encoder_and_cross_step_match_reference():
     """whisper: `_encode` over random frames (causal, as the reference),
     the cross attention's decode step against a random encoder cache,
@@ -448,6 +534,16 @@ def test_bf16_forward_matches_reference(arch):
     if tcfg.num_experts:
         assert g["b0"]["moe"]["router"].dtype == torch.float32
         assert g["b0"]["moe"]["experts_wi"].dtype == torch.bfloat16
+    if "mlstm" in tcfg.pattern:
+        for k in ("w_if", "b_if"):
+            assert g["b0"]["cell"][k].dtype == torch.float32
+        for k in ("r_h", "bias"):
+            assert g["b1"]["cell"][k].dtype == torch.float32
+        assert g["b0"]["cell"]["wq"].dtype == torch.bfloat16
+        cache = TSV.init_cache(tcfg, 1, 4, device=CPU)["blocks"]
+        assert all(v.dtype == torch.float32 for c in cache.values()
+                   for v in c.values())
+        assert bool((cache["b0"]["m"] == -1e30).all())
     if "rglru" in tcfg.pattern:
         assert g["b0"]["rec"]["lam"].dtype == torch.float32
         assert g["b0"]["rec"]["w_in"].dtype == torch.bfloat16
