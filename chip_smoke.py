@@ -153,7 +153,25 @@ Phases, each printing one JSON line:
                float32 loss and gradients at full width and one layer,
                card against CPU, with a TF32 control; the train_lm
                example (checkpoint at the midpoint, resumed).
- 15. examples — the HADES examples on the card
+ 15. parallel — the parallel substrate: the hades-cmp dry-run cell's
+               per-device program on the card at every HADES shape on
+               both meshes (32 x 8 and 2 x 32 x 8: 1,024 - 32,768
+               paper-bfv gadget lanes through the gadget Eval; wall,
+               peak memory beside the dry-run's estimate and roofline
+               step time), every gadget Eval shape against its plain
+               version (tolerance 0), launches reconciled; the dry-run
+               (`launch/dryrun.py`, started on the host when the script
+               starts, at the lowest priority) of smollm-360m, internlm2-20b
+               and deepseek-moe-16b train_4k, minicpm3-4b decode_32k,
+               recurrentgemma-9b long_500k, xlstm-125m prefill_32k and
+               hades-cmp cmp_1m on both meshes, every cell [ok], each
+               per-device peak and the report's tables printed
+               (estimates for an H100 cluster from a traced program);
+               the train phase's (a) steps again under the one-rank
+               mesh `launch/train` builds (a one-rank NCCL group),
+               losses bit-equal, and the reduced smollm and
+               deepseek-moe forward under it equal to the plain one.
+ 16. examples — the HADES examples on the card
                (`repro_torch.examples`): the quickstart, the range query
                at 2,048 hg38 rows (parts 1-5) and the trace smoke, each
                answer against the plaintext and every trace check; every
@@ -161,13 +179,14 @@ Phases, each printing one JSON line:
                version on the examples' own operands (tolerance 0, n =
                256 and 512), the checked launches reconciled with the
                counts.
- 16. card    — the card's name and power limit (nvidia-smi), then one
+ 17. card    — the card's name and power limit (nvidia-smi), then one
                {"kernels": [...]} line with every kernel's numbers (the
-               n = 16,384 shapes as rows named with the profile).
+               n = 16,384 shapes as rows named with the profile, the
+               HADES cells' largest shape as "eval_coeff0_gadget@hades-cmp").
 
 Launch counts are zeroed just before each path (serve, keymul, write,
-shard, join, loop, the lm bridge, train, the examples) and read just
-after; each path's kernels must have launched.  The LM families and the
+shard, join, loop, the lm bridge, train, the HADES cells, the examples)
+and read just after; each path's kernels must have launched.  The LM families and the
 training path launch none of the kernels: their modules are plain
 PyTorch, as the reference's are plain JAX.  The last
 line is the device record.  Any failure raises: the script then exits
@@ -257,6 +276,19 @@ TRAIN_F32_REL_TOL = 1e-5        # ~7x the reading, 1.41e-6 (H100)
 TRAIN_EXAMPLE_STEPS = 40
 # the examples phase's hg38 rows (the range query's parts 2 and 4)
 EXAMPLE_ROWS = 2048
+# the parallel phase: the dry-run cells traced on the host (each on both
+# meshes, one process per group, started when the script starts and read
+# after the train phase), one group per line; and the reduced configs
+# whose forward runs under the one-rank mesh
+DRYRUN_GROUPS = (
+    (("internlm2-20b", "train_4k"),),
+    (("deepseek-moe-16b", "train_4k"),),
+    (("smollm-360m", "train_4k"), ("recurrentgemma-9b", "long_500k")),
+    (("xlstm-125m", "prefill_32k"), ("minicpm3-4b", "decode_32k"),
+     ("hades-cmp", "cmp_1m")),
+)
+DRYRUN_LIMIT_S = 900
+MESH_FORWARD_ARCHS = ("smollm_360m", "deepseek_moe_16b")
 
 # H100 SXM published memory rate (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -3255,6 +3287,241 @@ def phase_examples(dev) -> dict:
     return out
 
 
+def start_dryrun() -> list:
+    """Start the dry-run of the DRYRUN_GROUPS cells on both meshes, one
+    process per group (`python -m repro_torch.launch.dryrun`, records
+    under build/dryrun), at the lowest CPU priority: they trace on the
+    host while the card's phases run.  Returns the processes."""
+    import os
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i, group in enumerate(DRYRUN_GROUPS):
+        code = "from repro_torch.launch import dryrun as D\n" + "".join(
+            f"D.main(['--arch', {a!r}, '--shape', {sh!r}, '--both-meshes', "
+            f"'--out', {str(out)!r}])\n" for a, sh in group)
+        log = open(out / f"group{i}.log", "w")
+        procs.append((group, log, subprocess.Popen(
+            ["nice", "-n", "19", sys.executable, "-c", code], cwd=ROOT,
+            env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def stop_dryrun(procs) -> None:
+    for _, log, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_parallel(dev, rate, dryrun_procs, train) -> dict:
+    """The parallel substrate (`parallel/`, `launch/{mesh,dryrun,report}`):
+    (a) the hades-cmp cell's per-device program on the card at every
+        HADES shape on both meshes (b_dev = 1,024 - 32,768 paper-bfv
+        gadget lanes, `run_hades_cell(..., execute=True)`): wall, peak
+        memory, the dry-run's memory estimate and roofline step time;
+        every gadget Eval shape it gave the kernel held against the
+        plain version (tolerance 0), launches reconciled;
+    (b) the dry-run's cells (`start_dryrun`, on the host): every cell
+        [ok] on both meshes, each per-device peak and the report's
+        roofline tables (estimates for an H100 cluster, not
+        measurements);
+    (c) the one-rank mesh `launch/train` now builds (`make_host_mesh`,
+        a one-rank NCCL group from a file:// store): the train phase's
+        (a) steps again under it, losses bit-equal; the reduced smollm
+        and deepseek-moe forward under it equal to the plain forward."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.encrypt import Ciphertext
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.params import make_params
+    from repro_torch.core.sampling import make_generator, uniform_poly
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import report as REP
+    from repro_torch.launch.mesh import HBM_BYTES, make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.constrain import use_mesh
+    from repro_torch.train import data as DATA
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_lib as TL
+
+    t_phase = time.perf_counter()
+    card = _card()
+    out: dict = {"phase": "parallel", "card": card}
+
+    # ---- (a) the HADES cells' per-device programs ----------------------
+    params = make_params("paper-bfv", mode="gadget")
+    ks = keygen(params, SEED + 110, device=dev)
+    src = make_generator(SEED + 111, dev)
+    source = Ciphertext(uniform_poly(params, src, (4096,)),
+                        uniform_poly(params, src, (4096,)))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    shapes, stop = record_gadget_shapes()
+    runs = []
+    try:
+        for shape in D.HADES_SHAPES:
+            for multi_pod in (False, True):
+                rec = D.run_hades_cell(shape, multi_pod, execute=True, ks=ks,
+                                       seed=SEED + 112 + len(runs))
+                ex = rec["execute"]
+                runs.append({
+                    "shape": shape, "mesh": rec["mesh"], "lanes": ex["lanes"],
+                    "wall_s": ex["wall_s"],
+                    "peak_mem_bytes": ex["peak_mem_bytes"],
+                    "peak_above_start_bytes": ex["peak_above_start_bytes"],
+                    "estimate_bytes": rec["memory"]["peak_bytes"],
+                    "step_time_s": rec["roofline"]["step_time_s"],
+                    "dominant": rec["roofline"]["dominant"],
+                    "launches": ex["launches"]["eval_coeff0_gadget"],
+                    "output_ok": ex["output_ok"], "card": card})
+                print(json.dumps({"hades_cell": runs[-1]}), flush=True)
+    finally:
+        stop()
+    launches = dict(_build.LAUNCHES)
+    calls = sum(c for c, _ in shapes.values())
+    checked = check_gadget_shapes(ks, source, shapes, SEED + 113, rate)
+    big = max(checked["shapes"], key=lambda sh: sh["rows"])
+    if "plain_ms" not in big:
+        from repro_torch.kernels import cmp_eval as CK
+        g = make_generator(SEED + 114, dev)
+        pick = torch.randint(0, 4096, (2 * big["rows"],), generator=g,
+                             device=dev)
+        K, n = params.num_towers, params.n
+        u0 = source.c0[pick[:big["rows"]]].view(1, big["rows"], K, n)
+        u1 = source.c1[pick[:big["rows"]]].view(1, big["rows"], K, n)
+        b0 = source.c0[pick[big["rows"]:]].view(1, big["rows"], K, n)
+        b1 = source.c1[pick[big["rows"]:]].view(1, big["rows"], K, n)
+        big["plain_ms"] = time_cuda(lambda: CK.eval_coeff0_gadget_plain(
+            u0, u1, 0, big["rows"], np.zeros(1, np.int64), b0, b1,
+            ks.cek_rev, ks.ring.q_arr[:, 0], params.scale,
+            params.profile.gadget_log_base), 1)
+        del u0, u1, b0, b1, pick
+    out["hades"] = {"runs": runs, "gadget_shapes": checked,
+                    "launches": launches, "recorded_calls": calls,
+                    "launches_reconciled":
+                    calls == launches["eval_coeff0_gadget"],
+                    "largest": big}
+    del ks, source
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) the one-rank mesh -----------------------------------------
+    store = ROOT / "build" / "pg_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        cfg = configs.get_config(TRAIN_ARCH)
+        tcfg = TL.TrainConfig(opt=OPT.OptimizerConfig(
+            warmup_steps=2, total_steps=TRAIN_FULL_STEPS + 1))
+        dcfg = DATA.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=SEED)
+        with use_mesh(mesh):
+            state = TL.init_state(cfg, tcfg, torch.Generator(
+                device=dev).manual_seed(SEED + 90), device=dev)
+            step_fn = TL.make_train_step(cfg, tcfg)
+            losses = []
+            for _, b in zip(range(TRAIN_FULL_STEPS), DATA.batches(dcfg)):
+                state, m = step_fn(state, {k: v.to(dev)
+                                           for k, v in b.items()})
+                losses.append(float(m["loss"]))
+        del state, step_fn
+        plain_losses = [st["loss"] for st in train["full"]["steps"]]
+        forwards = {}
+        for i, arch in enumerate(MESH_FORWARD_ARCHS):
+            rcfg = configs.get_reduced(arch)
+            p = T.init_params(rcfg, torch.Generator(device=dev).manual_seed(
+                SEED + 120 + i), device=dev)
+            tokens = torch.randint(
+                0, rcfg.vocab_size, (4, 32), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(SEED + 130))
+            want = T.forward(rcfg, p, {"tokens": tokens})
+            with use_mesh(mesh):
+                got = T.forward(rcfg, p, {"tokens": tokens})
+            forwards[arch] = bool(torch.equal(got, want))
+        out["mesh"] = {"shape": list(mesh.shape),
+                       "names": list(mesh.mesh_dim_names),
+                       "losses": losses, "plain_losses": plain_losses,
+                       "losses_equal": losses == plain_losses,
+                       "forward_equal": forwards}
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) the dry-run on the host -----------------------------------
+    t0 = time.perf_counter()
+    cells = {}
+    for group, log, proc in dryrun_procs:
+        try:
+            proc.wait(timeout=max(1.0, DRYRUN_LIMIT_S
+                                  - (time.perf_counter() - t_phase)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.flush()
+        text = Path(log.name).read_text()
+        for line in text.splitlines():
+            if line.startswith("[ok]") or line.startswith("[FAIL]"):
+                print(line, flush=True)
+        if proc.returncode:
+            print(text[-4000:], flush=True)
+        cells[" ".join(f"{a}/{sh}" for a, sh in group)] = {
+            "rc": proc.returncode, "ok_lines": text.count("[ok]")}
+    recs = REP.load(str(ROOT / "build" / "dryrun"))
+    peaks = {f"{a}/{sh}/{m}": r["memory"]["peak_per_device_gib"]
+             for (a, sh, m), r in sorted(recs.items())
+             if r["status"] == "ok"}
+    for mesh_name in REP.MESHES:
+        print(f"dry-run roofline (estimates for an H100 cluster, traced; "
+              f"mesh {mesh_name}):", flush=True)
+        print(REP.roofline_table(recs, mesh_name), flush=True)
+    want = 2 * sum(len(g) for g in DRYRUN_GROUPS)
+    out["dryrun"] = {"groups": cells, "records": len(recs),
+                     "ok": sum(r["status"] == "ok" for r in recs.values()),
+                     "expected": want, "peak_per_device_gib": peaks,
+                     "over_80gb": [k for k, v in peaks.items()
+                                   if v * 2**30 > HBM_BYTES],
+                     "wait_s": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    h = out["hades"]
+    require(h["gadget_shapes"]["equal"],
+            "the gadget Eval != plain at a HADES cell's shape")
+    require(h["launches_reconciled"],
+            f"HADES launches {h['launches']} != recorded calls {calls}")
+    require(all(r["output_ok"] and r["launches"] >= 1
+                and r["peak_mem_bytes"] <= HBM_BYTES for r in runs),
+            f"a HADES cell failed or did not fit: {runs}")
+    require(all(c["rc"] == 0 for c in cells.values()),
+            f"a dry-run group failed: {cells}")
+    require(out["dryrun"]["ok"] == want and len(recs) == want,
+            f"dry-run cells not [ok]: {out['dryrun']}")
+    require(out["mesh"]["losses_equal"],
+            f"losses under the one-rank mesh differ: {out['mesh']}")
+    require(all(forwards.values()),
+            f"a forward under the one-rank mesh differs: {forwards}")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3278,6 +3545,15 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+    dryrun = start_dryrun()
+    try:
+        return _main(t_start, dryrun)
+    finally:
+        stop_dryrun(dryrun)
+
+
+def _main(t_start: float, dryrun: list) -> int:
+    import torch
     dev = torch.device("cuda", 0)
     print(json.dumps({"phase": "start", "torch": torch.__version__,
                       "cuda": torch.version.cuda,
@@ -3315,6 +3591,7 @@ def main() -> int:
     families = [phase_lm_family(dev, arch, SEED + 50 + 10 * i)
                 for i, arch in enumerate(LM_FAMILIES)]
     train = phase_train(dev)
+    parallel = phase_parallel(dev, rate, dryrun, train)
     examples = phase_examples(dev)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           **{k: serve[k] for k in ("correct", "keygen_s", "encrypt_s",
@@ -3373,6 +3650,16 @@ def main() -> int:
               "tf32_control_grad_rel_norm": train["f32_card_vs_cpu"][
                   "tf32_control"]["grad_rel_norm"],
               "train_lm_improved": train["train_lm"]["improved"]},
+          "parallel": {
+              "hades_walls_s": {f"{r['shape']}/{r['mesh']}": r["wall_s"]
+                                for r in parallel["hades"]["runs"]},
+              "hades_equal": parallel["hades"]["gadget_shapes"]["equal"],
+              "hades_launches_reconciled":
+              parallel["hades"]["launches_reconciled"],
+              "dryrun_ok": [parallel["dryrun"]["ok"],
+                            parallel["dryrun"]["expected"]],
+              "mesh_losses_equal": parallel["mesh"]["losses_equal"],
+              "seconds": parallel["seconds"]},
           "examples": {"launches": examples["launches"],
                        "walls": examples["walls"],
                        **{k: examples["kernels_vs_plain"][k] for k in (
@@ -3404,7 +3691,14 @@ def main() -> int:
                   key=lambda s: s["calls"])
         return row(f"{name}@{LM_PROFILE}", source, replaces, lm, name,
                    max(s["max_abs_err"] for s in shapes), top)
+    hades = parallel["hades"]
     emit({"kernels": [
+        {**row("eval_coeff0_gadget@hades-cmp", "cmp_eval.cu",
+               "src/repro/kernels/cmp_eval.py:48", hades,
+               "eval_coeff0_gadget",
+               max(sh["max_abs_err"] for sh in
+                   hades["gadget_shapes"]["shapes"]), hades["largest"]),
+         "lanes": hades["largest"]["rows"]},
         row("eval_coeff0_gadget", "cmp_eval.cu",
             "src/repro/kernels/cmp_eval.py:48", serve, "eval_coeff0_gadget",
             ev["max_abs_err"], tile),

@@ -8,9 +8,12 @@ The port of `repro.launch.train`.  Fault tolerance:
   * watchdog: per-step wall-time EMA; a step exceeding
     --straggler-factor x EMA is logged as a straggler event
   * --fail-at-step N: crash injection for the restart tests
-The reference's host mesh and sharding rules have no counterpart on one
-card.  The result (printed as the last line) adds each step's loss and
-wall to the reference's first/last loss and step count.
+As the reference, it trains under the host mesh (`launch.mesh.
+make_host_mesh`) over the default process group; where none is set up it
+makes a one-rank group (NCCL on the card, gloo on the host), so one card
+is a (1, 1) mesh, on which every anchor is the identity.  The result
+(printed as the last line) adds each step's loss and wall to the
+reference's first/last loss and step count.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
@@ -19,6 +22,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import time
@@ -27,7 +31,9 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.ring import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.constrain import use_mesh
 from repro_torch.train import checkpoint as CKPT
 from repro_torch.train import data as DATA
 from repro_torch.train import optimizer as OPT
@@ -40,6 +46,22 @@ def get_cfg(arch: str, variant: str | None) -> ModelConfig:
             f"repro_torch.configs.{configs.canon(arch)}")
         return getattr(mod, variant)()
     return configs.get_reduced(arch)
+
+
+@contextlib.contextmanager
+def host_group(device: torch.device):
+    """The default process group, or a one-rank group for the block
+    (NCCL on a CUDA device, gloo on the host; an in-process store)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        yield
+        return
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None) -> dict:
@@ -75,6 +97,12 @@ def main(argv=None) -> dict:
     dcfg = DATA.DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                            global_batch=args.batch, seed=args.seed)
 
+    with host_group(device), use_mesh(make_host_mesh()):
+        return _train(args, cfg, tcfg, dcfg, device)
+
+
+def _train(args, cfg: ModelConfig, tcfg: TL.TrainConfig,
+           dcfg: DATA.DataConfig, device: torch.device) -> dict:
     state = TL.init_state(cfg, tcfg, torch.Generator().manual_seed(
         args.seed), device=device)
     start_step = 0

@@ -6,19 +6,22 @@ tensors over plain dict parameter trees with the reference's names (so a
 reference tree carries across leaf for leaf, `transformer.params_from_numpy`).
 The math mirrors the reference step for step: params in cfg.param_dtype,
 matmuls in cfg.dtype, softmax and norms in float32, the same query
-chunking and masks.  The reference's mesh constraints
-(`repro.parallel.constrain`) are TPU-pod sharding and have no counterpart
-on one card.  No Pallas kernel lies on this path, so attention stays
-plain PyTorch ops (no fused attention: the reference has none).
+chunking and masks, and the same activation anchors
+(`parallel.constrain.shard`, the identity outside a mesh of more than one
+rank).  No Pallas kernel lies on this path, so attention stays plain
+PyTorch ops (no fused attention: the reference has none).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.constrain import (_ambient_mesh, even, mesh_axes,
+                                            placements, resolve, shard)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -93,7 +96,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: [B, S, H, dk], k: [B, T, H, dk], v: [B, T, H, dv] (GQA callers
     repeat KV heads to H first, `repeat_kv`).  Returns [B, S, H, dv].
     Each chunk of `chunk` queries scores against every key (masked, not
-    skipped) in float32, as the reference does."""
+    skipped) in float32, as the reference does.
+
+    On a mesh of several ranks (DTensor operands) each rank attends its
+    own batch rows and, when there are at least as many heads as the
+    `model` axis is wide (`head_par`) and they divide evenly, its own
+    heads: the layout the reference's anchors pin, run on the local
+    shards (`local_map`).
+    Fewer heads replicate (sharding the KV axis instead makes every
+    chunk reduce [qc, T]-sized partials over `model`)."""
+    H = q.shape[2]
+    mesh = _ambient_mesh()
+    model_sz = mesh_axes(mesh).get("model", 1) if mesh is not None else 1
+    head_par = H >= model_sz
+    attend = functools.partial(_attend, causal=causal, window=window,
+                               q_offset=q_offset, chunk=chunk,
+                               t_valid=t_valid)
+    if mesh is not None and mesh.size() > 1 and hasattr(q, "placements"):
+        from torch.distributed.tensor.experimental import local_map
+        pl = placements(mesh, even(mesh, resolve(
+            mesh, ("batch", None, "model" if head_par else None, None),
+            q.shape), q.shape))
+        return local_map(attend, out_placements=list(pl),
+                         in_placements=(pl, pl, pl), device_mesh=mesh,
+                         redistribute_inputs=True)(q, k, v)
+    return attend(q, k, v)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window: int, q_offset: int, chunk: int,
+            t_valid: Optional[int]) -> torch.Tensor:
+    """`flash_attention` on plain (local) tensors."""
     B, S, H, dk = q.shape
     T = k.shape[1]
     t_valid = T if t_valid is None else t_valid
@@ -185,7 +218,8 @@ def gqa_project_q(params: dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.hd
-    q = (x @ params["wq"].to(_dt(cfg))).reshape(B, S, H, hd)
+    q = shard((x @ params["wq"].to(_dt(cfg))).reshape(B, S, H, hd),
+              "batch", None, "model", None)
     return rope(q, positions, cfg.rope_theta)
 
 
@@ -199,15 +233,19 @@ def gqa_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     dt = _dt(cfg)
     src = x if kv_x is None else kv_x
     T = src.shape[1]
-    q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (src @ params["wk"].to(dt)).reshape(B, T, KV, hd)
-    v = (src @ params["wv"].to(dt)).reshape(B, T, KV, hd)
+    q = shard((x @ params["wq"].to(dt)).reshape(B, S, H, hd),
+              "batch", None, "model", None)
+    k = shard((src @ params["wk"].to(dt)).reshape(B, T, KV, hd),
+              "batch", None, "model", None)
+    v = shard((src @ params["wv"].to(dt)).reshape(B, T, KV, hd),
+              "batch", None, "model", None)
     if use_rope:
         q = rope(q, torch.arange(S, device=x.device), cfg.rope_theta)
         k = rope(k, torch.arange(T, device=x.device), cfg.rope_theta)
     o = flash_attention(q, repeat_kv(k, H // KV), repeat_kv(v, H // KV),
                         causal=causal, window=window, chunk=cfg.attn_chunk)
-    return o.reshape(B, S, H * hd) @ params["wo"].to(dt)
+    return shard(o.reshape(B, S, H * hd) @ params["wo"].to(dt),
+                 "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -265,13 +303,16 @@ def mla_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
     pos = torch.arange(S, device=x.device)
     c_kv, k_rope = mla_latent(params, cfg, x, pos)
     q_nope, q_rope = mla_queries(params, cfg, x, pos)
-    k_nope = (c_kv @ params["wk_up"].to(dt)).reshape(B, S, H, hd)
-    v = (c_kv @ params["wv_up"].to(dt)).reshape(B, S, H, hd)
+    k_nope = shard((c_kv @ params["wk_up"].to(dt)).reshape(B, S, H, hd),
+                   "batch", None, "model", None)
+    v = shard((c_kv @ params["wv_up"].to(dt)).reshape(B, S, H, hd),
+              "batch", None, "model", None)
     q = torch.cat([q_nope, q_rope], dim=-1)                  # [B,S,H,hd+rd]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)],
                   dim=-1)
     o = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    return o.reshape(B, S, H * hd) @ params["wo"].to(dt)
+    return shard(o.reshape(B, S, H * hd) @ params["wo"].to(dt),
+                 "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -294,4 +335,7 @@ def swiglu_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     h = (torch.nn.functional.silu(x @ params["wg"].to(dt))
          * (x @ params["wi"].to(dt)))
-    return h @ params["wo"].to(dt)
+    if h.ndim == 3:
+        h = shard(h, "batch", None, "model")
+    out = h @ params["wo"].to(dt)
+    return shard(out, *(["batch"] + [None] * (out.ndim - 1)))

@@ -1,10 +1,11 @@
 """Mixture-of-Experts layer: shared + routed experts, top-k routing,
 capacity-bounded einsum dispatch (GShard/MaxText style).
 
-The port of `repro.models.moe` on one card: `moe_apply` is the
-reference's single-device `_moe_apply_global`.  Its expert-parallel
-`_moe_apply_ep` (a `shard_map` over a mesh) waits for multi-GPU
-placement (ROADMAP.md queue 1, items 13b/17h).
+The port of `repro.models.moe`.  On one card (or a one-rank mesh)
+`moe_apply` runs `_moe_apply_global`; on a mesh whose `model` axis divides
+the experts it runs the expert-parallel `_moe_apply_ep`: a body of plain
+tensor ops on each rank's shards (`local_map`), then one all-reduce of
+the combined output over `model`.
 
 Covers both MoE configs:
   * deepseek-moe-16b: 2 shared + 64 routed, top-6, fine-grained d_ff=1408
@@ -19,6 +20,8 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.constrain import (_ambient_mesh, mesh_axes,
+                                            placements, shard)
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -86,7 +89,18 @@ def _dispatch(idx: torch.Tensor, E: int, C: int
 
 def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
-    """x: [B, S, d] -> [B, S, d] (the reference's single-device path)."""
+    """x: [B, S, d] -> [B, S, d].
+
+    Takes the expert-parallel path on a mesh whose `model` axis (wider
+    than 1) divides the experts: the global-scatter path below would
+    make the tokens' buffers move across the mesh.  Both are
+    differentiable and agree (tested)."""
+    mesh = _ambient_mesh()
+    if mesh is not None:
+        sizes = mesh_axes(mesh)
+        if ("model" in sizes and cfg.num_experts % sizes["model"] == 0
+                and sizes["model"] > 1):
+            return _moe_apply_ep(params, cfg, x, mesh)
     return _moe_apply_global(params, cfg, x)
 
 
@@ -107,14 +121,17 @@ def _moe_apply_global(params: dict, cfg: ModelConfig,
     src = xf[:, None, :].expand(T, k, d).reshape(T * k, d)
     buf = torch.zeros((E * C + 1, d), dtype=dt, device=x.device)
     buf.index_copy_(0, slot.reshape(-1), src)
-    buf = buf[:E * C].reshape(E, C, d)
+    buf = shard(buf[:E * C].reshape(E, C, d), "model", None, None)
 
     # expert SwiGLU, batched over E
     h = (torch.nn.functional.silu(
         torch.einsum("ecd,edf->ecf", buf, params["experts_wg"].to(dt)))
          * torch.einsum("ecd,edf->ecf", buf, params["experts_wi"].to(dt)))
-    out_flat = torch.einsum("ecf,efd->ecd", h,
-                            params["experts_wo"].to(dt)).reshape(E * C, d)
+    h = shard(h, "model", None, None)
+    out_slots = shard(torch.einsum("ecf,efd->ecd", h,
+                                   params["experts_wo"].to(dt)),
+                      "model", None, None)
+    out_flat = out_slots.reshape(E * C, d)
 
     # combine: gather each token's k slots, weight by gates
     gathered = out_flat[torch.clamp(slot, max=E * C - 1).reshape(-1)
@@ -126,6 +143,84 @@ def _moe_apply_global(params: dict, cfg: ModelConfig,
     if cfg.num_shared_experts:
         combined = combined + L.swiglu_apply(params["shared"], xf)
     return combined.reshape(B, S, d)
+
+
+def _moe_ep_body(cfg: ModelConfig, x_loc: torch.Tensor,
+                 router: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
+                 wo: torch.Tensor, rank: int) -> torch.Tensor:
+    """One model rank's share of the expert-parallel MoE: x_loc [T_loc, d]
+    (the rank's batch rows; every model rank holds the same ones), the
+    full router, and the rank's experts wi/wg [E_loc, d, ff], wo [E_loc,
+    ff, d], experts rank*E_loc .. (rank+1)*E_loc - 1.  Returns the
+    rank's partial output [T_loc, d]; the sum over the model ranks is
+    the routed experts' output.
+
+    Every expert shard already holds every token of its batch rows, so
+    dispatch is a local select/scatter into [E_loc, C, d] and the one
+    collective is the caller's all-reduce of the partials."""
+    T_loc, d = x_loc.shape
+    k, E = cfg.experts_per_token, cfg.num_experts
+    E_loc = wi.shape[0]
+    dt = x_loc.dtype
+    C = _capacity(cfg, T_loc)
+    idx, gates = route(cfg, router, x_loc)                   # [T_loc, k]
+    # position-in-expert over the GLOBAL expert ids (local tokens)
+    pos, _, _ = _dispatch(idx, E, C)
+    owned = torch.div(idx.long(), E_loc, rounding_mode="floor") == rank
+    keep = (pos < C) & owned
+    slot = torch.where(keep, (idx.long() % E_loc) * C + pos,
+                       torch.full_like(pos, E_loc * C))
+    src = x_loc[:, None, :].expand(T_loc, k, d).reshape(T_loc * k, d)
+    buf = torch.zeros((E_loc * C + 1, d), dtype=dt, device=x_loc.device)
+    buf.index_copy_(0, slot.reshape(-1), src)
+    buf = buf[:E_loc * C].reshape(E_loc, C, d)
+    h = (torch.nn.functional.silu(
+        torch.einsum("ecd,edf->ecf", buf, wg.to(dt)))
+         * torch.einsum("ecd,edf->ecf", buf, wi.to(dt)))
+    out_slots = torch.einsum("ecf,efd->ecd", h,
+                             wo.to(dt)).reshape(E_loc * C, d)
+    gathered = out_slots[torch.clamp(slot, max=E_loc * C - 1).reshape(-1)
+                         ].reshape(T_loc, k, d)
+    gathered = torch.where(keep[..., None], gathered,
+                           torch.zeros((), dtype=dt, device=x_loc.device))
+    return torch.sum(gathered * gates[..., None].to(dt), dim=1)
+
+
+def _moe_apply_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                  mesh) -> torch.Tensor:
+    """Expert-parallel MoE on a mesh (x a DTensor, batch-sharded).
+
+    `local_map` hands each rank its batch rows, the router whole and its
+    experts (gathered over `data`, split over `model`); `_moe_ep_body`
+    runs on those local tensors, its output is a partial sum over
+    `model`, and one all-reduce over `model` completes it (2*T*d bytes
+    on the wire, the Megatron-EP minimum)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.parallel.sharding import batch_axes
+
+    B, S, d = x.shape
+    b_axes = batch_axes(mesh)
+    rank = mesh.get_local_rank("model")
+    xf = x.reshape(B * S, d)
+    tok = placements(mesh, (b_axes, None))
+    out_pl = tuple(Partial() if n == "model" else p
+                   for n, p in zip(mesh.mesh_dim_names, tok))
+    expert = placements(mesh, ("model", None, None))
+    rep = placements(mesh, ())
+    body = local_map(
+        lambda x_loc, router, wi, wg, wo: _moe_ep_body(
+            cfg, x_loc, router, wi, wg, wo, rank),
+        out_placements=list(out_pl),
+        in_placements=(tok, rep, expert, expert, expert),
+        device_mesh=mesh, redistribute_inputs=True)
+    out = body(xf, params["router"], params["experts_wi"],
+               params["experts_wg"], params["experts_wo"])
+    # the one necessary EP collective: the partials' sum over `model`
+    out = out.redistribute(mesh, tok)
+    if cfg.num_shared_experts:
+        out = out + L.swiglu_apply(params["shared"], xf)
+    return out.reshape(B, S, d)
 
 
 def load_balance_loss(cfg: ModelConfig, router: torch.Tensor,

@@ -11,7 +11,11 @@ RG-LRU per channel:
 The port of `repro.models.rglru`.  Prefill and forward run the
 recurrence as a log-depth scan; decode is the single-step recurrence
 with O(1) state.  The reference's `jax.nn.gelu` is the tanh
-approximation, so the gate uses `approximate="tanh"`.
+approximation, so the gate uses `approximate="tanh"`.  One activation
+anchor the reference lacks pins the block's output to the batch layout
+(the identity without a mesh of several ranks): on a mesh, DTensor's
+backward otherwise meets the scan's gradient in a strided layout it
+cannot take.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.constrain import shard
 
 _C = 8.0
 
@@ -119,7 +124,7 @@ def block_apply(params: dict, cfg: ModelConfig, x: torch.Tensor
     gate = gelu(x @ params["w_gate"].to(dt))
     u = _conv_causal(params, x @ params["w_in"].to(dt), cfg)
     h = rglru_scan(params, u)
-    return (gate * h) @ params["w_out"].to(dt)
+    return shard((gate * h) @ params["w_out"].to(dt), "batch", None, None)
 
 
 def block_step(params: dict, cfg: ModelConfig, x_t: torch.Tensor,

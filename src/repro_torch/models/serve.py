@@ -30,6 +30,7 @@ from repro_torch.models import rglru as RG
 from repro_torch.models import transformer as TR
 from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.parallel.constrain import gather_weights, on_mesh
 
 Tree = Dict
 
@@ -97,7 +98,13 @@ def init_cache(cfg: ModelConfig, B: int, T_max: int, *,
 def _write_pos(buf: torch.Tensor, update: torch.Tensor,
                pos: torch.Tensor) -> torch.Tensor:
     """A copy of buf [B, T, ...] with update [B, 1, ...] at position pos
-    along axis 1 (the reference's dynamic_update_slice)."""
+    along axis 1 (the reference's dynamic_update_slice).  On a mesh of
+    several ranks, a select against the position (DTensor shards no
+    `index_copy` on every torch)."""
+    if on_mesh():
+        at = torch.arange(buf.shape[1], device=buf.device) == pos
+        return torch.where(at.reshape((1, -1) + (1,) * (buf.dim() - 2)),
+                           update, buf)
     return buf.index_copy(1, pos.reshape(1).long(), update)
 
 
@@ -242,6 +249,7 @@ def decode_step(cfg: ModelConfig, params: Tree, cache: Tree,
     x_t = TR.embed(cfg, params, token)
     outs = []
     for g, gp in enumerate(TR.iter_groups(cfg, params["groups"])):
+        gp = gather_weights(gp)
         new_gc = {}
         for i, kind in enumerate(cfg.pattern):
             gc = TR.group_params(cache["blocks"][f"b{i}"], g)
@@ -256,14 +264,12 @@ def decode_step(cfg: ModelConfig, params: Tree, cache: Tree,
 def _local_window(t: torch.Tensor, W: int) -> torch.Tensor:
     """The ring-buffer layout of the last W positions of t [B, S, ...]:
     slot j holds the position p with p % W == j (zeros where S < W)."""
-    B, S = t.shape[:2]
-    out = torch.zeros((B, W, *t.shape[2:]), dtype=t.dtype, device=t.device)
+    S = t.shape[1]
     if S >= W:
-        sel = torch.arange(S - W, S, device=t.device)
-        out[:, sel % W] = t[:, sel]
-    else:
-        out[:, :S] = t
-    return out
+        # position S - W + i lands in slot (S - W + i) % W = (i + S) % W
+        return torch.roll(t[:, S - W:], shifts=S % W, dims=1)
+    pad = [0, 0] * (t.dim() - 2) + [0, W - S]
+    return torch.nn.functional.pad(t, pad)
 
 
 def _block_prefill(cfg: ModelConfig, kind: str, p: Tree, x: torch.Tensor,
@@ -349,6 +355,7 @@ def prefill(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor],
                if cfg.is_encoder_decoder else None)
     outs = []
     for gp in TR.iter_groups(cfg, params["groups"]):
+        gp = gather_weights(gp)
         gc = {}
         for i, kind in enumerate(cfg.pattern):
             x, gc[f"b{i}"] = _block_prefill(cfg, kind, gp[f"b{i}"], x,

@@ -33,6 +33,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.parallel.constrain import (gather_weights, mesh_modes,
+                                            on_mesh, shard)
 
 Tree = Dict[str, Any]
 
@@ -239,9 +241,12 @@ def _run_stack(cfg: ModelConfig, groups: Tree, x: torch.Tensor,
     pattern = pattern or cfg.pattern
 
     def group(x, gp, enc_out):
-        for i, kind in enumerate(pattern):
-            x = _block_apply(cfg, kind, gp[f"b{i}"], x, enc_out)
-        return x
+        with mesh_modes():
+            gp = gather_weights(gp)
+            x = shard(x, "batch", None, None)
+            for i, kind in enumerate(pattern):
+                x = _block_apply(cfg, kind, gp[f"b{i}"], x, enc_out)
+            return shard(x, "batch", None, None)
 
     remat = cfg.remat and torch.is_grad_enabled()
     for gp in iter_groups(cfg, groups):
@@ -266,6 +271,18 @@ def _encode(cfg: ModelConfig, params: Tree,
 
 def embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor
           ) -> torch.Tensor:
+    """Token embeddings in cfg.dtype.  On a mesh of several ranks the
+    table is gathered whole and looked up through `embedding`: DTensor
+    shards neither an index's backward nor, on every torch, a lookup in a
+    vocab-sharded table."""
+    if on_mesh():
+        w = params["embed"]
+        if hasattr(w, "placements"):
+            from torch.distributed.tensor import Replicate
+            w = w.redistribute(w.device_mesh,
+                               [Replicate()] * w.device_mesh.ndim)
+        return torch.nn.functional.embedding(
+            tokens.long(), w).to(L.torch_dtype(cfg.dtype))
     return params["embed"][tokens.long()].to(L.torch_dtype(cfg.dtype))
 
 
@@ -273,7 +290,7 @@ def embed_inputs(cfg: ModelConfig, params: Tree,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Token embeddings, the first P replaced by `patches` where the
     config has that frontend."""
-    x = embed(cfg, params, batch["tokens"])
+    x = shard(embed(cfg, params, batch["tokens"]), "batch", None, None)
     if cfg.frontend == "patches" and "patches" in batch:
         P = batch["patches"].shape[1]
         x = torch.cat([batch["patches"].to(x.dtype), x[:, P:]], dim=1)
@@ -294,7 +311,7 @@ def _logits(cfg: ModelConfig, params: Tree,
                if cfg.is_encoder_decoder else None)
     x = _run_stack(cfg, params["groups"], x, enc_out=enc_out)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(cfg, params, x)
+    return shard(unembed(cfg, params, x), "batch", None, "model")
 
 
 @torch.no_grad()
@@ -314,7 +331,13 @@ def loss_fn(cfg: ModelConfig, params: Tree,
     logits = _logits(cfg, params, batch).float()[:, :-1]
     targets = batch["tokens"][:, 1:].long()
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if on_mesh():
+        # each rank picks from its own vocab shard (a gather's backward
+        # would make a zero gradient of the global shape on every rank)
+        ids = torch.arange(logits.shape[-1], device=logits.device)
+        picked = torch.where(targets[..., None] == ids, logits, 0.0).sum(-1)
+    else:
+        picked = torch.gather(logits, -1, targets[..., None])[..., 0]
     mask = torch.ones(targets.shape, device=logits.device)
     if cfg.frontend == "patches":
         pos = torch.arange(targets.shape[1], device=logits.device)

@@ -4,7 +4,9 @@
 The port of `repro.train.train_lib`.  Autograd gives the gradients of
 `transformer.loss_fn`; with microbatches, the losses and the gradients
 (in float32) are summed over the microbatches in order, then scaled by
-1/mb, as the reference's `lax.scan` does.  A step returns a new
+1/mb, as the reference's `lax.scan` does.  A batch-sharded DTensor batch
+(a mesh of several ranks) is cut into microbatches within each rank's
+own rows, so no row moves between ranks.  A step returns a new
 `TrainState` and leaves the one it was given as it was.
 """
 from __future__ import annotations
@@ -60,7 +62,30 @@ def value_and_grad(cfg: ModelConfig, params: Tree,
     grad_of = {id(p): g for p, g in zip(flat, grads)}
     return loss.detach(), T.map_params(
         lambda p: (torch.zeros_like(p) if grad_of[id(p)] is None
-                   else grad_of[id(p)]), live)
+                   else _placed_as(grad_of[id(p)], p)), live)
+
+
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient (a partial sum over the batch's ranks) reduced
+    once into its parameter's placement; any other tensor as it is."""
+    if hasattr(g, "placements") and tuple(g.placements) != tuple(
+            p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _microbatches(x: torch.Tensor, mb: int) -> list:
+    """The mb microbatches of x: consecutive row blocks (the reference's
+    reshape [mb, rows / mb, ...]); for a DTensor, blocks of each rank's
+    local rows, placed as x is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        local = x.to_local()
+        parts = local.reshape(mb, local.shape[0] // mb, *local.shape[1:])
+        return [DTensor.from_local(parts[i], x.device_mesh, x.placements,
+                                   run_check=False) for i in range(mb)]
+    parts = x.reshape(mb, x.shape[0] // mb, *x.shape[1:])
+    return [parts[i] for i in range(mb)]
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
@@ -75,11 +100,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
             if x.shape[0] % mb:
                 raise ValueError(f"batch {k}: {x.shape[0]} rows % "
                                  f"microbatches {mb} != 0")
-        micro = [{k: x.reshape(mb, x.shape[0] // mb, *x.shape[1:])[i]
-                  for k, x in batch.items()} for i in range(mb)]
+        parts = {k: _microbatches(x, mb) for k, x in batch.items()}
+        micro = [{k: v[i] for k, v in parts.items()} for i in range(mb)]
         loss_acc = 0.0
-        g_acc = T.map_params(lambda p: torch.zeros(p.shape, device=p.device),
-                             params)
+        g_acc = T.map_params(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         for b in micro:
             loss, g = value_and_grad(cfg, params, b)
             loss_acc = loss_acc + loss

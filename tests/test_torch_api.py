@@ -5,8 +5,10 @@ For each module a user imports from (`core`, `core.compare`, `db`,
 `launch.elastic`, the LM's `models.layers`, `models.moe`,
 `models.rglru`, `models.xlstm`, `models.serve`, `models.transformer`,
 and training's `train.optimizer`, `train.compress`, `train.data`,
-`train.checkpoint`, `train.train_lib` and `launch.train`) and the
-classes `Table` and `ShardSpec`, every public
+`train.checkpoint`, `train.train_lib` and `launch.train`, the launch
+tools `launch.mesh`, `launch.specs`, `launch.roofline`, `launch.dryrun`
+and `launch.report`, and `parallel.sharding` and `parallel.constrain`)
+and the classes `Table` and `ShardSpec`, every public
 name of the reference must exist in the port, except the intended
 absences below, each with its reason.  A module's public names are
 those not starting with `_` that it defines, or, for a package, that it
@@ -17,6 +19,7 @@ inputs (the test-bfv KeySet of `tests/conftest.py`).
 """
 import importlib
 import inspect
+import os
 import types
 
 import jax
@@ -44,7 +47,9 @@ MODULES = ("core", "core.compare", "db", "db.executor", "db.table",
            "models.layers", "models.moe", "models.rglru", "models.xlstm",
            "models.serve", "models.transformer", "train.optimizer",
            "train.compress", "train.data", "train.checkpoint",
-           "train.train_lib", "launch.train")
+           "train.train_lib", "launch.train", "launch.mesh", "launch.specs",
+           "launch.roofline", "launch.dryrun", "launch.report",
+           "parallel.sharding", "parallel.constrain")
 CLASSES = (("db.table", "Table"), ("db.shard.spec", "ShardSpec"))
 
 # (module or "module.Class", name) -> why the port has no such name
@@ -66,6 +71,19 @@ ABSENT = {
         "multi-GPU shard placement (ROADMAP.md queue 1, item 13b)",
     ("db.shard.spec.ShardSpec", "placeable"):
         "multi-GPU shard placement (ROADMAP.md queue 1, item 13b)",
+    ("launch.mesh", "make_shard_mesh"):
+        "the 1-D mesh of a sharded table: multi-GPU shard placement "
+        "(ROADMAP.md queue 1, item 13b)",
+    ("parallel.sharding", "leading_sharding"):
+        "a sharded table's stack placement: multi-GPU shard placement "
+        "(ROADMAP.md queue 1, item 13b)",
+    ("parallel.sharding", "shard_leading"):
+        "a sharded table's stack placement: multi-GPU shard placement "
+        "(ROADMAP.md queue 1, item 13b)",
+    ("launch.roofline", "collective_bytes"):
+        "parses XLA's post-SPMD HLO text; the port has no HLO: the "
+        "dry-run records each collective's kind, mesh axis and result "
+        "bytes while it traces (roofline.count_collective)",
 }
 # reference modules with no port module at all
 ABSENT_MODULES = {
@@ -77,11 +95,30 @@ ABSENT_PRIVATE = {
     ("db.executor", "_use_kernel"):
         "the engine switch; the port dispatches by the device its tensors "
         "lie on",
-    ("models.moe", "_moe_apply_ep"):
-        "expert parallelism under shard_map over a mesh: multi-GPU "
-        "placement (ROADMAP.md queue 1, 13b/17h); one card runs "
-        "`_moe_apply_global`",
+    ("launch.dryrun", "_depth_variant"):
+        "XLA's cost analysis counts a loop body once, so the reference "
+        "compiles depth 1 and 2 and extrapolates; the port's eager trace "
+        "counts every layer",
+    ("launch.dryrun", "_extrapolated_cost"):
+        "XLA's cost analysis counts a loop body once, so the reference "
+        "compiles depth 1 and 2 and extrapolates; the port's eager trace "
+        "counts every layer",
 }
+
+
+def _import_ref(name):
+    """A reference module; `repro.launch.dryrun` sets XLA_FLAGS for 512
+    host devices when imported, which must reach neither this process's
+    JAX (its backend starts first) nor a later subprocess."""
+    jax.devices()
+    was = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(f"repro.{name}")
+    finally:
+        if was is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = was
 
 
 def _public(mod) -> set:
@@ -102,7 +139,7 @@ def _public(mod) -> set:
 
 @pytest.mark.parametrize("name", MODULES)
 def test_public_names_match_reference(name):
-    ref = importlib.import_module(f"repro.{name}")
+    ref = _import_ref(name)
     port = importlib.import_module(f"repro_torch.{name}")
     missing = {n for n in _public(ref) if not hasattr(port, n)}
     absent = {n for (m, n) in ABSENT if m == name}
@@ -128,7 +165,7 @@ def test_absent_modules_and_core_exports():
         with pytest.raises(ModuleNotFoundError):
             importlib.import_module(f"repro_torch.{name}")
     for module, name in ABSENT_PRIVATE:
-        assert name in vars(importlib.import_module(f"repro.{module}"))
+        assert name in vars(_import_ref(module))
         assert not hasattr(importlib.import_module(f"repro_torch.{module}"),
                            name)
     from repro import core as R
