@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --shard-phases   # the build, 9, 10 and 10b only
 
 Phases, each printing one JSON line:
 
@@ -62,7 +63,7 @@ Phases, each printing one JSON line:
                (paper mode on the paper-ckks ring), split and wide.
   9. shard   — after the write table is freed, the serve keys' hg38 table
                re-encrypted (same seed, same rows) and re-partitioned into
-               4 logical shards ([4, 16,384] slots); a
+               4 logical shards ([4, 16,384] slots), unplaced; a
                ShardedQueryServer(batch=4) answers the 8 requests and the
                sharded benchmark's query (30th-70th percentile Range,
                TopK 8), each equal to the unsharded server's answer and
@@ -84,6 +85,24 @@ Phases, each printing one JSON line:
                Eval layouts (gadget: the negated right column against
                negated left atoms, with a q - 1 digit tile; paper: the
                column form of both sides) against their plain versions.
+ 10b. placement — the shard phase's traffic (it runs unplaced, every
+               shard on the card) on placed tables, on two shard meshes:
+               (a) `ShardSpec.create(4)`, the visible cards (d = 1 on a
+               machine with one card, which the record says), and (b)
+               four explicit positions over the cards (`[cuda:0] * 4` on
+               one card: d = 4, four slabs, each slab's Eval launches
+               on its position's card).  Each mesh: the hg38 table
+               re-encrypted (same seed, same rows) and placed, the 8
+               requests and the Range/TopK-8, the ShardedIndex Eq probe,
+               431 inserts with a Range, the union scan, compaction, the
+               Range again, the [4 x 4] nested join on the join phase's
+               cut, and one paper-mode scan under the write keys.  Every
+               raw fused-scan and pair-grid value byte-equal to the
+               unplaced runs' (sha256 of each call's array), every answer
+               equal to theirs and to the plaintext; the gadget and paper
+               Eval against their plain versions at every shape the
+               placed path gave them, launches reconciled; walls and each
+               card's peak memory.
  11. loop    — after the earlier tables are freed, the serving-loop
                benchmark's traffic (benchmarks/serve_loop.py::run at
                rows = 65,536): two tenants with their own paper-mode
@@ -185,7 +204,8 @@ Phases, each printing one JSON line:
                HADES cells' largest shape as "eval_coeff0_gadget@hades-cmp").
 
 Launch counts are zeroed just before each path (serve, keymul, write,
-shard, join, loop, the lm bridge, train, the HADES cells, the examples)
+shard, join, each placement mesh, loop, the lm bridge, train, the HADES
+cells, the examples)
 and read just after; each path's kernels must have launched.  The LM families and the
 training path launch none of the kernels: their modules are plain
 PyTorch, as the reference's are plain JAX.  The last
@@ -195,7 +215,9 @@ repository beside it.  It imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import hashlib
 import json
 import shutil
 import subprocess
@@ -205,6 +227,7 @@ from pathlib import Path
 
 import numpy as np
 
+T0 = time.perf_counter()     # the script's start, for the phases' t_s
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -319,6 +342,8 @@ WRITE_KERNELS = ("eval_coeff0_paper", "negacyclic_mul_ntt",
 # probes through the gadget Eval; the join path encrypts its tables and
 # runs both Evals (gadget sort-merge and nested cut, paper nested cut)
 SHARD_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt")
+PLACEMENT_KERNELS = ("eval_coeff0_gadget", "eval_coeff0_paper",
+                     "negacyclic_mul_ntt")
 JOIN_KERNELS = ("eval_coeff0_gadget", "eval_coeff0_paper",
                 "negacyclic_mul_ntt")
 # the loop runs paper keygen, encryption and the paper Eval; the LM
@@ -333,6 +358,10 @@ EXAMPLE_KERNELS = ("eval_coeff0_gadget", "eval_coeff0_paper",
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries the script's seconds
+    so far (`t_s`), so each phase's share of the wall reads off."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1277,7 +1306,8 @@ def check_paper_shapes(sources: dict, shapes: dict, seed: int,
             if s0 == s1 == kn and rows <= N and b_rows == 0:
                 return col.c0[:rows], col.c1[:rows]
             span = -(-((rows - 1) * max(s0, s1) + kn) // kn)
-            pick = torch.randint(0, N, (span,), generator=gen, device=dev)
+            pick = torch.randint(0, N, (span,), generator=gen,
+                                 device=dev).to(col.c0.device)
             return tuple(c[pick].as_strided((rows, K, n), (s, n, 1))
                          for c, s in ((col.c0, s0), (col.c1, s1)))
         a0, a1 = laid(B, *strides[:2])
@@ -1463,17 +1493,130 @@ def _sharded_query(ks, vals):
     return q, mask, sorted(vals[mask].tolist(), reverse=True)[:SHARD_TOPK]
 
 
-def phase_shard(ks, vals, rate) -> dict:
-    """The sharded read and write path over the serve keys' hg38 table
-    (re-encrypted under the serve phase's seed: the same rows), with
-    every launch count zeroed just before it, the served batches and the
-    index build under torch.profiler; then one shard-stacked scan tile
-    against its plain version."""
+def _shard_traffic(ks, st, vals, reqs, q_top, *, trace=False) -> dict:
+    """The shard phase's traffic over the sharded table `st` (the serve
+    keys' hg38 rows in SHARDS logical shards): the 8 requests and the
+    sharded benchmark's Range/TopK through a ShardedQueryServer, a
+    ShardedIndex build and an Eq probe, SHARD_INSERT inserts with a Range,
+    the Range by scan over base ∪ delta, compaction, the Range by index
+    and by scan.  Walls by host clock after a synchronize; with `trace`
+    the served batches and the index build under torch.profiler.
+    Returns what ran (the server, index, results, compaction stats), the
+    walls, and `answers`: every answer as host arrays."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import db
     from repro_torch.core import encrypt as E
+    from repro_torch.db import plan as P
+
+    walls, devs = {}, {}
+
+    def timed(name, fn):
+        if not trace or name not in ("serve_s", "index_build_s"):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            return out
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        devs[name] = _device_summary(prof, walls[name])
+        return out
+
+    server = db.ShardedQueryServer(ks, st, batch=BATCH)
+    ids = [server.submit(q) for q, _ in reqs] + [server.submit(q_top)]
+    res = timed("serve_s", server.run)
+    idx = timed("index_build_s",
+                lambda: db.ShardedIndex.build(ks, st, "value"))
+    target = int(vals[len(vals) // 3])
+    probe = timed("eq_probe_s", lambda: db.execute(
+        ks, st, P.Eq("value", E.encrypt(ks, target, SEED + 33)),
+        indexes={"value": idx}))
+
+    # ---- writes: insert, Range over base ∪ delta, compact, Range ---------
+    rng = np.random.default_rng(SEED + 34)
+    ins_vals = rng.choice(vals, SHARD_INSERT)
+    writer = db.ShardedQueryServer(ks, st, indexes={"value": idx},
+                                   batch=BATCH)
+    lo, hi = (int(v) for v in np.sort(rng.choice(vals, 2, replace=False)))
+    rq = P.Range("value", E.encrypt(ks, lo, SEED + 35),
+                 E.encrypt(ks, hi, SEED + 36))
+
+    def insert_range():
+        ins = writer.submit_insert({"value": ins_vals}, SEED + 37)
+        qid = writer.submit(rq)
+        return ins, qid, writer.run()
+    ins, qid, wres = timed("insert_range_s", insert_range)
+    delta_slots = st.delta_block
+    scan = timed("union_scan_s", lambda: db.execute(ks, st, rq))
+    cstats = timed("compact_s", writer.compact)
+    after = db.execute(ks, st, rq, indexes=writer.indexes)
+    after_scan = db.execute(ks, st, rq)
+    all_vals = np.concatenate([vals, ins_vals])
+    return {
+        "server": server, "res": res, "ids": ids, "index": idx,
+        "probe": probe, "target": target, "cstats": cstats,
+        "delta_slots": delta_slots, "walls": walls, "devices": devs,
+        "write_want": (all_vals >= lo) & (all_vals <= hi),
+        "answers": {
+            "served": [res[i].row_ids for i in ids],
+            "top_mask": res[ids[-1]].mask, "probe_mask": probe.mask,
+            "insert_ids": wres[ins].row_ids,
+            "write_masks": [wres[qid].mask, scan.mask, after.mask,
+                            after_scan.mask]}}
+
+
+def _same_answers(a: dict, b: dict) -> bool:
+    """Two `_shard_traffic` answer sets equal, array for array."""
+    def arrays(answers):
+        return [x for v in answers.values()
+                for x in (v if isinstance(v, list) else [v])]
+    return all(np.array_equal(x, y) for x, y in zip(arrays(a), arrays(b)))
+
+
+def record_raw(module, name: str) -> tuple:
+    """Record the raw values every call of `module.name` returns (a host
+    array) until `stop()`: the sharded engine's fused-scan and pair-grid
+    values, to hold one placement's against another's byte for byte.
+    Returns (records, stop).  A call only keeps its array (no copy, no
+    hash: the walls around it measure the engine alone); stop() turns
+    each record into (shape, sha256 of the bytes) and returns the
+    seconds that took."""
+    inner, records = getattr(module, name), []
+
+    def recorded(*args, **kwargs):
+        vals = inner(*args, **kwargs)
+        records.append(vals)
+        return vals
+
+    def stop():
+        setattr(module, name, inner)
+        t0 = time.perf_counter()
+        for i, vals in enumerate(records):
+            records[i] = [list(vals.shape), hashlib.sha256(
+                np.ascontiguousarray(vals).tobytes()).hexdigest()]
+        return time.perf_counter() - t0
+    setattr(module, name, recorded)
+    return records, stop
+
+
+def phase_shard(ks, vals, rate) -> tuple:
+    """The sharded read and write path over the serve keys' hg38 table
+    (re-encrypted under the serve phase's seed: the same rows), unplaced
+    (`ShardSpec.create(SHARDS, use_mesh=False)`: every shard on the
+    card), with every launch count zeroed just before it, the served
+    batches and the index build under torch.profiler; then one
+    shard-stacked scan tile against its plain version.  Returns the
+    phase's record and the baseline the placement phase holds its
+    placed runs to (the inputs, the answers, the raw values)."""
+    import torch
+
+    from repro_torch import db
     from repro_torch.core import ring as R
     from repro_torch.core.compare import next_pow2
     from repro_torch.db import plan as P
@@ -1485,11 +1628,6 @@ def phase_shard(ks, vals, rate) -> dict:
     from repro_torch.kernels import cmp_eval as CK
     from repro_torch.kernels import ops as KO
 
-    def sync_s(t0):
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    walls = {}
     table = Table.from_arrays(ks, "hg38", {"value": vals}, SEED + 1)
     reqs = _requests(ks, vals, np.random.default_rng(SEED))
     q_top, top_mask, top_want = _sharded_query(ks, vals)
@@ -1507,21 +1645,17 @@ def phase_shard(ks, vals, rate) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     shapes, stop_recording = record_gadget_shapes()
+    raw, stop_raw = record_raw(SX, "sharded_fused_eval")
     t0 = time.perf_counter()
-    st = db.ShardedTable.from_table(ks, table,
-                                    spec=db.ShardSpec.create(SHARDS))
-    walls["partition_s"] = sync_s(t0)
+    st = db.ShardedTable.from_table(
+        ks, table, spec=db.ShardSpec.create(SHARDS, use_mesh=False))
+    torch.cuda.synchronize()
+    partition_s = time.perf_counter() - t0
     n_sp = st.n_padded_per_shard
     del table
-    server = db.ShardedQueryServer(ks, st, batch=BATCH)
-    ids = [server.submit(q) for q, _ in reqs] + [server.submit(q_top)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = server.run()
-        walls["serve_s"] = sync_s(t0)
-    serve_dev = _device_summary(prof, walls["serve_s"])
-    del prof
+    t = _shard_traffic(ks, st, vals, reqs, q_top, trace=True)
+    walls = {"partition_s": partition_s, **t["walls"]}
+    res, ids, probe, idx = t["res"], t["ids"], t["probe"], t["index"]
     correct = 0
     for qid, fid, (_, truth) in zip(ids, fids, reqs):
         want = np.nonzero(truth(vals))[0]
@@ -1535,57 +1669,20 @@ def phase_shard(ks, vals, rate) -> dict:
              / one_stats.per_shard_scan_compares)
     kp, sp = next_pow2(SHARD_TOPK), next_pow2(SHARDS)
     merge_bound = (sp - 1) * (kp + (kp // 2) * max(1, kp.bit_length() - 1))
-
-    # ---- fan-out index: one Eq probe --------------------------------------
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        idx = db.ShardedIndex.build(ks, st, "value")
-        walls["index_build_s"] = sync_s(t0)
-    index_dev = _device_summary(prof, walls["index_build_s"])
-    del prof
-    target = int(vals[len(vals) // 3])
-    t0 = time.perf_counter()
-    probe = db.execute(ks, st, P.Eq("value", E.encrypt(ks, target,
-                                                       SEED + 33)),
-                       indexes={"value": idx})
-    walls["eq_probe_s"] = sync_s(t0)
-    probe_ok = bool(np.array_equal(probe.mask, vals == target))
-
-    # ---- writes: insert, Range over base ∪ delta, compact, Range ---------
-    rng = np.random.default_rng(SEED + 34)
-    ins_vals = rng.choice(vals, SHARD_INSERT)
-    all_vals = np.concatenate([vals, ins_vals])
-    writer = db.ShardedQueryServer(ks, st, indexes={"value": idx},
-                                   batch=BATCH)
-    lo, hi = (int(v) for v in np.sort(rng.choice(vals, 2, replace=False)))
-    rq = P.Range("value", E.encrypt(ks, lo, SEED + 35),
-                 E.encrypt(ks, hi, SEED + 36))
-    want = (all_vals >= lo) & (all_vals <= hi)
-    t0 = time.perf_counter()
-    ins = writer.submit_insert({"value": ins_vals}, SEED + 37)
-    qid = writer.submit(rq)
-    wres = writer.run()
-    walls["insert_range_s"] = sync_s(t0)
-    delta_slots = st.delta_block
-    t0 = time.perf_counter()
-    scan = db.execute(ks, st, rq)
-    walls["union_scan_s"] = sync_s(t0)
-    write_ok = bool(np.array_equal(wres[ins].row_ids,
+    probe_ok = bool(np.array_equal(probe.mask, vals == t["target"]))
+    answers, want = t["answers"], t["write_want"]
+    write_ok = bool(np.array_equal(answers["insert_ids"],
                                    len(vals) + np.arange(SHARD_INSERT))
-                    and np.array_equal(wres[qid].mask, want)
-                    and np.array_equal(scan.mask, want))
-    t0 = time.perf_counter()
-    cstats = writer.compact()
-    walls["compact_s"] = sync_s(t0)
-    after = db.execute(ks, st, rq, indexes=writer.indexes)
-    after_scan = db.execute(ks, st, rq)
+                    and all(np.array_equal(m, want)
+                            for m in answers["write_masks"][:2]))
     compact_ok = bool(not st.has_delta
-                      and np.array_equal(after.mask, want)
-                      and np.array_equal(after_scan.mask, want))
+                      and all(np.array_equal(m, want)
+                              for m in answers["write_masks"][2:]))
+    cstats = t["cstats"]
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     stop_recording()
+    walls["raw_hash_s"] = stop_raw()
     peak = torch.cuda.max_memory_allocated()
 
     # ---- one shard-stacked scan tile against its plain version -----------
@@ -1596,9 +1693,10 @@ def phase_shard(ks, vals, rate) -> dict:
     A, W = len(atoms), st.shard_scan_width
     T = KO.lane_tile(W, SHARDS * A)
     uniq, sel = dedup_atom_columns(st, atoms, st.scan_stack)
+    uniq = type(uniq)(uniq.c0.full(), uniq.c1.full())   # the one slab
     bounds = stack_atom_bounds(atoms)
     lo_row = W - T
-    got = SX.sharded_tile_values(ks, uniq, sel, bounds, lo_row, T)
+    got = KO.slab_scan_values(ks, uniq, sel, bounds, lo_row, T)
     qs = ks.ring.q_arr[:, 0]
 
     tile_want = torch.stack([R.crt_centered(
@@ -1633,8 +1731,8 @@ def phase_shard(ks, vals, rate) -> dict:
                      INT8_TC_OPS_PER_S)}
     del uniq, bounds, got, tile_want
     stack = st.columns["value"]                      # [S, N_sp, K, n]
-    rows = type(stack)(stack.c0.reshape(-1, K, n),
-                       stack.c1.reshape(-1, K, n))
+    rows = type(stack)(stack.c0.full().reshape(-1, K, n),
+                       stack.c1.full().reshape(-1, K, n))
     path_shapes = check_gadget_shapes(ks, rows, shapes, SEED + 45, rate)
     del stack, rows
     out = {
@@ -1650,20 +1748,21 @@ def phase_shard(ks, vals, rate) -> dict:
         "batches": [{"queries": b.queries, "eval_calls": b.eval_calls,
                      "scan_compares": b.scan_compares,
                      "merge_compares": b.merge_compares,
-                     "wall_s": b.wall_s} for b in server.batch_log],
+                     "wall_s": b.wall_s} for b in t["server"].batch_log],
         "index_build_compares": idx.build_compares,
         "eq_probe": {"exact": probe_ok,
                      "compares": probe.stats.index_compares,
-                     "matched": int((vals == target).sum())},
-        "insert": {"rows": SHARD_INSERT, "delta_slots": delta_slots,
+                     "matched": int((vals == t["target"]).sum())},
+        "insert": {"rows": SHARD_INSERT, "delta_slots": t["delta_slots"],
                    "exact": write_ok},
         "compact": {"merge_compares": cstats.merge_compares,
                     "rebuild_compares": cstats.rebuild_compares,
                     "rounds": cstats.merge_rounds, "exact": compact_ok},
-        "walls": walls, "serve_device": serve_dev,
-        "index_build_device": index_dev, "launches": launches,
-        "peak_mem_bytes": peak, "scan_tile": tile,
-        "gadget_shapes": path_shapes,
+        "walls": walls, "serve_device": t["devices"]["serve_s"],
+        "index_build_device": t["devices"]["index_build_s"],
+        "launches": launches, "peak_mem_bytes": peak, "scan_tile": tile,
+        "gadget_shapes": path_shapes, "mesh_devices": st.spec.mesh_devices,
+        "raw_scans": raw,
     }
     emit(out)
     require(correct == len(reqs), f"sharded server answered {out['correct']}")
@@ -1680,7 +1779,9 @@ def phase_shard(ks, vals, rate) -> dict:
             f"path shape: {path_shapes['shapes']}")
     require(all(launches[k] > 0 for k in SHARD_KERNELS),
             f"a kernel never launched on the shard path: {launches}")
-    return out
+    return out, {"reqs": reqs, "q_top": q_top, "answers": answers,
+                 "raw": raw, "walls": walls, "peak_mem_bytes": peak,
+                 "launches": launches}
 
 
 def phase_join(ks, wks, vals, rate) -> tuple:
@@ -1698,6 +1799,7 @@ def phase_join(ks, wks, vals, rate) -> tuple:
     from repro_torch.db import plan as P
     from repro_torch.db.index import SortedIndex
     from repro_torch.db.query_serve import QueryServer
+    from repro_torch.db.shard import join as SJ
     from repro_torch.db.table import Table
     from repro_torch.kernels import _build
 
@@ -1767,13 +1869,14 @@ def phase_join(ks, wks, vals, rate) -> tuple:
                      and np.array_equal(nres[j2].pairs, want_cut)
                      and np.array_equal(sm_cut, want_cut))
     tiles = cl // J._grid_tile(J._resolve_block_pairs(None), cl, cr)
+    grid_raw, stop_raw = record_raw(SJ, "sharded_pair_eval")
     t0 = time.perf_counter()
-    sl = db.ShardedTable.from_table(ks, lcut,
-                                    spec=db.ShardSpec.create(SHARDS))
-    sr = db.ShardedTable.from_table(ks, rcut,
-                                    spec=db.ShardSpec.create(SHARDS))
+    unplaced = db.ShardSpec.create(SHARDS, use_mesh=False)
+    sl = db.ShardedTable.from_table(ks, lcut, spec=unplaced)
+    sr = db.ShardedTable.from_table(ks, rcut, spec=unplaced)
     sharded = db.execute_join(ks, sl, sr, join, strategy="nested")
     walls["nested_sharded_s"] = sync_s(t0)
+    walls["nested_sharded_hash_s"] = stop_raw()
     del sl, sr
     sharded_ok = bool(np.array_equal(sharded.pairs, nres[j1].pairs))
     t0 = time.perf_counter()
@@ -1817,7 +1920,8 @@ def phase_join(ks, wks, vals, rate) -> tuple:
                           "grid_pair_compares": b.pair_compares,
                           "device": nested_dev},
         "nested_sharded": {"exact": sharded_ok, **stats(sharded),
-                           "shards": list(sharded.stats.shards)},
+                           "shards": list(sharded.stats.shards),
+                           "raw_grid": grid_raw},
         "nested_paper": {"exact": paper_ok, **stats(paper)},
         "walls": walls, "launches": launches, "peak_mem_bytes": peak,
         "gadget_shapes": path_shapes, "paper_shapes": paper_shapes,
@@ -1929,6 +2033,188 @@ def phase_layouts(ks, wks, lcut, rcut, pl, pr, rate) -> dict:
 # ---------------------------------------------------------------------------
 # the serving loop under its benchmark's traffic (benchmarks/serve_loop.py)
 # ---------------------------------------------------------------------------
+
+def phase_placement(ks, wks, vals, lcut, rcut, pl, pr, base, join,
+                    rate) -> dict:
+    """The shard phase's traffic on placed tables, on two shard meshes:
+    (a) `ShardSpec.create(SHARDS)`, the visible cards (on one card d = 1,
+    which the record says), and (b) SHARDS explicit positions over the
+    cards (`[cuda:0] * 4` on one card: d = 4, each slab's launches on its
+    position's card).  Each mesh re-encrypts the serve keys' hg38 table
+    under the shard phase's seed, places it and runs `_shard_traffic`,
+    then the [SHARDS x SHARDS] nested join on the join phase's cut and
+    one paper-mode scan under the write keys `wks` over the paper cut
+    `pl`, with every launch count zeroed just before it.  Every raw
+    fused-scan and pair-grid value, answer and pair equals the unplaced
+    runs' (`base` from the shard phase, `join`'s grid, this phase's
+    unplaced paper scan) and the plaintext; every gadget and paper Eval
+    shape the placed path gave the kernels equals its plain version,
+    launches reconciled; walls and each card's peak memory."""
+    import torch
+
+    from repro_torch import db
+    from repro_torch.core import encrypt as E
+    from repro_torch.db import plan as P
+    from repro_torch.db.shard import executor as SX
+    from repro_torch.db.shard import join as SJ
+    from repro_torch.db.table import Table
+    from repro_torch.kernels import _build
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    count = torch.cuda.device_count()
+    home = ks.device
+    cl, cr = JOIN_CUT
+    buckets = max(8, len(vals) // 8)
+    lk, rk = vals % buckets, vals[len(vals) - len(vals) // 2:] % buckets
+    want_cut = np.argwhere(lk[:cl, None] == rk[None, :cr])
+    join_raw = join["nested_sharded"]["raw_grid"]
+    # the paper scan's query, truth and unplaced raw values
+    lo, hi = (int(v) for v in np.percentile(lk[:cl], [30, 70]))
+    pq = P.Range("k", E.encrypt(wks, lo, SEED + 120),
+                 E.encrypt(wks, hi, SEED + 121))
+    p_want = (lk[:cl] >= lo) & (lk[:cl] <= hi)
+    p_raw, stop_raw = record_raw(SX, "sharded_fused_eval")
+    flat = db.ShardedTable.from_table(
+        wks, pl, spec=db.ShardSpec.create(SHARDS, use_mesh=False))
+    p_flat = db.execute(wks, flat, pq)
+    stop_raw()
+    del flat
+    meshes = {"visible": {},
+              "positions": {"devices": [
+                  torch.device("cuda", j % count) if home.type == "cuda"
+                  else home for j in range(SHARDS)]}}
+    runs = []
+    for name, kw in meshes.items():
+        spec = db.ShardSpec.create(SHARDS, **kw)
+        cards = [str(d) for d in spec.mesh.distinct]
+        gc.collect()
+        torch.cuda.empty_cache()
+        for c in range(count):
+            torch.cuda.reset_peak_memory_stats(c)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        gshapes, stop_g = record_gadget_shapes()
+        pshapes, stop_p = record_paper_shapes()
+        scan_raw, stop_s = record_raw(SX, "sharded_fused_eval")
+        grid_raw, stop_j = record_raw(SJ, "sharded_pair_eval")
+        try:
+            t0 = time.perf_counter()
+            table = Table.from_arrays(ks, "hg38", {"value": vals}, SEED + 1)
+            st = db.ShardedTable.from_table(ks, table, spec=spec)
+            partition_s = sync_s(t0)
+            del table
+            t = _shard_traffic(ks, st, vals, base["reqs"], base["q_top"])
+            rows = st.columns["value"]       # rows of the first slab
+            source = type(rows)(*(x.slabs[0].reshape(-1, *x.shape[2:])
+                                  .clone() for x in rows))
+            d = st.spec.mesh_devices
+            slabs = rows.c0.num_slabs
+            del st, t["server"], t["index"], rows
+            gc.collect()
+            t0 = time.perf_counter()
+            sl = db.ShardedTable.from_table(ks, lcut, spec=spec)
+            sr = db.ShardedTable.from_table(ks, rcut, spec=spec)
+            joined = db.execute_join(ks, sl, sr, P.Join(None, None, on="k"),
+                                     strategy="nested")
+            join_s = sync_s(t0)
+            del sl, sr
+            t0 = time.perf_counter()
+            pt = db.ShardedTable.from_table(wks, pl, spec=spec)
+            pscan = db.execute(wks, pt, pq)
+            paper_s = sync_s(t0)
+            del pt
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        finally:
+            stop_g()
+            stop_p()
+            hash_s = stop_s() + stop_j()
+        peaks = {f"cuda:{c}": torch.cuda.max_memory_allocated(c)
+                 for c in range(count)}
+        answers_ok = _same_answers(t["answers"], base["answers"])
+        truth_ok = bool(
+            all(np.array_equal(r, np.nonzero(truth(vals))[0])
+                for r, (_, truth) in zip(t["answers"]["served"],
+                                         base["reqs"]))
+            and all(np.array_equal(m, t["write_want"])
+                    for m in t["answers"]["write_masks"])
+            and np.array_equal(t["answers"]["probe_mask"],
+                               vals == t["target"]))
+        raw_ok = (scan_raw == base["raw"] + p_raw and grid_raw == join_raw)
+        join_ok = bool(np.array_equal(joined.pairs, want_cut))
+        paper_ok = bool(np.array_equal(pscan.mask, p_want)
+                        and np.array_equal(pscan.mask, p_flat.mask))
+        gadget = check_gadget_shapes(ks, source, gshapes, SEED + 122, rate)
+        del source
+        # each card's paper shapes (its KeySet replica's) checked and
+        # timed on that card, as the current device
+        paper = {"equal": bool(pshapes), "shapes": []}
+        for dev in spec.mesh.distinct:
+            rid = id(wks.replica(dev).cek_rev)
+            mine = {k: v for k, v in pshapes.items() if k[0] == rid}
+            if not mine:
+                continue
+            col = type(pl.column("k"))(*(x.to(dev) for x in pl.column("k")))
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                got = check_paper_shapes({rid: (f"paper@{dev}", col)}, mine,
+                                         SEED + 123, rate)
+            paper["equal"] &= got["equal"]
+            paper["shapes"] += got["shapes"]
+        g_calls = sum(x["calls"] * x["launches_per_call"]
+                      for x in gadget["shapes"])
+        p_calls = sum(x["calls"] for x in paper["shapes"])
+        reconciled = (g_calls == launches["eval_coeff0_gadget"]
+                      and p_calls == launches["eval_coeff0_paper"])
+        run = {
+            "mesh": name, "device_count": count, "d": d, "slabs": slabs,
+            "cards": cards, "positions": [str(x) for x in spec.mesh.devices],
+            "degenerate": d == 1,
+            "raw_scans": len(scan_raw), "raw_grids": len(grid_raw),
+            "raw_equal": raw_ok, "answers_equal": answers_ok,
+            "truth_ok": truth_ok, "join_exact": join_ok,
+            "join_pairs": int(len(joined.pairs)),
+            "join_eval_calls": joined.stats.eval_calls,
+            "paper_scan_exact": paper_ok,
+            "mesh_devices_in_stats": [
+                t["res"][t["ids"][-1]].stats.mesh_devices,
+                joined.stats.left.mesh_devices],
+            "walls": {"partition_s": partition_s, **t["walls"],
+                      "nested_join_s": join_s, "paper_scan_s": paper_s,
+                      "raw_hash_s": hash_s},
+            "unplaced_walls": base["walls"], "peak_mem_bytes": peaks,
+            "launches": launches, "gadget_shapes": gadget,
+            "paper_shapes": paper, "launches_reconciled": reconciled}
+        if d == 1:
+            run["note"] = (f"{count} card(s) visible: ShardSpec.create("
+                           f"{SHARDS}) has d = 1, the unplaced layout")
+        emit({"phase": "placement", **run})
+        runs.append(run)
+        require(raw_ok, f"placed raw values differ from unplaced ({name})")
+        require(answers_ok and truth_ok,
+                f"placed answers differ from unplaced or the truth ({name})")
+        require(join_ok, f"the placed [{SHARDS}x{SHARDS}] join's pairs "
+                f"differ ({name})")
+        require(paper_ok, f"the placed paper scan differs ({name})")
+        require(gadget["equal"] and paper["equal"],
+                f"an Eval shape of the placed path != plain ({name})")
+        require(reconciled, f"placed launches {launches} != the recorded "
+                f"calls ({name})")
+        require(all(launches[k] > 0 for k in PLACEMENT_KERNELS),
+                f"a kernel never launched on the placed path: {launches}")
+        require(d == len(spec.mesh.devices) and slabs == d
+                and run["mesh_devices_in_stats"] == [d, d],
+                f"mesh {name}: d = {d}, {slabs} slabs, stats "
+                f"{run['mesh_devices_in_stats']}")
+        require(name != "positions" or d == SHARDS,
+                f"the explicit mesh has d = {d}, not {SHARDS}")
+        del t, joined, pscan
+    torch.cuda.empty_cache()
+    return {"phase": "placement", "device_count": count, "runs": runs}
+
 
 def _pcts(lats) -> tuple:
     """(p50, p99) in milliseconds, numpy's linear percentiles as the
@@ -3545,11 +3831,82 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["--shard-phases"]:
+        return _main_shard(t_start)
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (the one "
+              "option is --shard-phases)", file=sys.stderr)
+        return 2
     dryrun = start_dryrun()
     try:
         return _main(t_start, dryrun)
     finally:
         stop_dryrun(dryrun)
+
+
+def _placement_summary(placement: dict) -> dict:
+    """Each placed run's mesh, walls, peaks and checks, by mesh name."""
+    return {r["mesh"]: {
+        "d": r["d"], "cards": r["cards"], "walls": r["walls"],
+        "peak_mem_bytes": r["peak_mem_bytes"],
+        **{k: r[k] for k in ("raw_equal", "answers_equal", "truth_ok",
+                             "join_exact", "paper_scan_exact",
+                             "launches_reconciled")}}
+        for r in placement["runs"]}
+
+
+def _print_card_and_device() -> None:
+    """The card's name and power limit (nvidia-smi), then the device
+    record, the last line."""
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def _main_shard(t_start: float) -> int:
+    """`python3 chip_smoke.py --shard-phases`: the build, then phases 9,
+    10 and 10b alone (shard, join with its layouts, placement) on the
+    keys the serve and write phases make, so that the placed runs can be
+    measured on a machine with several cards (mesh (a) then spans every
+    visible card).  Ends with the card line and the device record."""
+    import torch
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.params import make_params
+    from repro_torch.data import load_dataset
+    dev = torch.device("cuda", 0)
+    print(json.dumps({"phase": "start", "mode": "shard-phases",
+                      "torch": torch.__version__, "cuda": torch.version.cuda,
+                      "python": sys.version.split()[0],
+                      "device_count": torch.cuda.device_count()}),
+          flush=True)
+    phase_build()
+    rate = int_mac_rate()
+    params = make_params(PROFILE, mode="gadget")
+    vals = load_dataset("hg38", scheme="bfv", t=params.t)
+    ks = keygen(params, SEED, device=dev)
+    wks = keygen(make_params(PROFILE, mode="paper"), SEED + 20, device=dev,
+                 paper_ecek_weight=0)
+    shard, shard_base = phase_shard(ks, vals, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    *cut, join = phase_join(ks, wks, vals, rate)
+    layouts = phase_layouts(ks, wks, *cut, rate)
+    placement = phase_placement(ks, wks, vals, *cut, shard_base, join, rate)
+    emit({"phase": "done", "mode": "shard-phases",
+          "seconds": time.perf_counter() - t_start,
+          "shard": {k: shard[k] for k in ("correct", "walls",
+                                          "peak_mem_bytes")},
+          "join": {"walls": join["walls"]},
+          "layouts_equal": layouts["equal"],
+          "placement": _placement_summary(placement)})
+    _print_card_and_device()
+    return 0
 
 
 def _main(t_start: float, dryrun: list) -> int:
@@ -3574,12 +3931,13 @@ def _main(t_start: float, dryrun: list) -> int:
     del wtable                      # and the write table for the shard path
     gc.collect()
     torch.cuda.empty_cache()
-    shard = phase_shard(ks, vals, rate)
+    shard, shard_base = phase_shard(ks, vals, rate)
     gc.collect()
     torch.cuda.empty_cache()
     *cut, join = phase_join(ks, wks, vals, rate)
     layouts = phase_layouts(ks, wks, *cut, rate)
-    del cut, ks, wks
+    placement = phase_placement(ks, wks, vals, *cut, shard_base, join, rate)
+    del cut, ks, wks, shard_base
     gc.collect()
     torch.cuda.empty_cache()
     loop = phase_loop(dev, rate)
@@ -3603,6 +3961,7 @@ def _main(t_start: float, dryrun: list) -> int:
           "shard": {k: shard[k] for k in ("correct", "topk_ok",
                                           "scan_ratio", "merge_compares",
                                           "walls", "peak_mem_bytes")},
+          "placement": _placement_summary(placement),
           "join": {"walls": join["walls"],
                    "peak_mem_bytes": join["peak_mem_bytes"],
                    **{k: join[k]["exact"] for k in (

@@ -86,6 +86,33 @@ class KeySet:
                                                            self.ring.q_arr))
         return self._cache[("br", name)]
 
+    def replica(self, device) -> "KeySet":
+        """This key set on `device`: itself there, else a copy of the key
+        material with its ring (and Shoup tables), `cek_rev`,
+        `cek_rev_bytes` and the key transforms (`key_br`, through the
+        forward `ntt_br` there) made on that device once and cached: the
+        keys each card of a placed table evaluates with."""
+        dev = torch.device(device)
+        if dev == self.device:
+            return self
+        key = ("replica", dev)
+        if key not in self._cache:
+            def move(t):
+                return None if t is None else t.to(dev)
+            rep = KeySet(params=self.params,
+                         ring=R.make_ring(self.params, dev),
+                         sk=move(self.sk), pk0=move(self.pk0),
+                         pk1=move(self.pk1), cek=move(self.cek),
+                         cek_gadget=move(self.cek_gadget),
+                         cek_gadget_ntt=move(self.cek_gadget_ntt))
+            rep._cache["cek_rev"] = move(self.cek_rev)
+            if self.mode != "paper":
+                rep._cache["cek_rev_bytes"] = move(self.cek_rev_bytes)
+            for name in ("pk0", "pk1", "sk"):
+                rep.key_br(name)
+            self._cache[key] = rep
+        return self._cache[key]
+
     @classmethod
     def from_numpy(cls, params: HadesParams, *, sk, pk0, pk1, cek=None,
                    cek_gadget=None, device=None) -> "KeySet":

@@ -16,8 +16,8 @@ The port of `repro.db.executor` (single table).  Execution:
 Dispatch is by device.  On CUDA, a gadget-mode tile is ONE launch of
 the gadget Eval kernel over the unique column stack (no per-atom copy,
 no digit tensor); a paper-mode tile is one paper Eval launch per unique
-column plus one on the atom bounds (`dedup_eval`).  On CPU the same
-tiles run the kernels' plain versions.
+column plus one on the atom bounds (`kernels.ops.dedup_tile_values`).
+On CPU the same tiles run the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -30,7 +30,6 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import compare as C
-from repro_torch.core import ring as R
 from repro_torch.core.ckks import eps_to_tau
 from repro_torch.core.encrypt import Ciphertext
 from repro_torch.core.keys import KeySet
@@ -38,6 +37,7 @@ from repro_torch.db import plan as P
 from repro_torch.db.index import SortedIndex
 from repro_torch.db.table import Table, rows_to_mask
 from repro_torch.kernels import ops as KO
+from repro_torch.parallel.sharding import ShardStack
 
 
 @dataclasses.dataclass
@@ -71,39 +71,14 @@ class QueryResult:
         return int(self.row_ids.shape[0])
 
 
-def dedup_eval(ks: KeySet, uniq: Ciphertext, sel: np.ndarray,
-               bounds: Ciphertext, row_offset: int,
-               rows: int) -> torch.Tensor:
-    """Raw eval values [A, rows] of one row tile of a deduped column stack
-    against the [A, 1] atom bounds — the reference's `jitted_dedup_eval`.
-
-    Gadget mode: one Eval-kernel launch that gathers each atom's column
-    by `sel` inside the kernel.  Paper mode: `eval_value` is linear in
-    the ciphertext pair, so the column side is evaluated once per unique
-    column of the tile (the paper kernel's column form, addressed by row
-    offset, no copy) and once on the [A] bounds; each atom lane is then a
-    gather by `sel` + coefficient-0 subtract — bit-identical values."""
-    if ks.params.mode != "paper":
-        return KO.gadget_tile_values(ks, uniq, sel, bounds.c0[:, 0],
-                                     bounds.c1[:, 0], row_offset, rows)
-    tile = slice(row_offset, row_offset + rows)
-    g_col = torch.stack([
-        KO.paper_coeff0(ks, Ciphertext(uniq.c0[u, tile], uniq.c1[u, tile]))
-        for u in range(uniq.c0.shape[0])])                  # [U, rows, K]
-    g_bnd = KO.paper_coeff0(ks, Ciphertext(bounds.c0[:, 0],
-                                           bounds.c1[:, 0]))  # [A, K]
-    idx = torch.as_tensor(np.asarray(sel, np.int64), device=uniq.c0.device)
-    diff = (g_col[idx] - g_bnd[:, None]) % ks.ring.q_arr[:, 0]
-    return R.crt_centered(ks.params, diff)
-
-
 def dedup_atom_columns(table, atoms: List[P.Atom],
                        stack) -> Tuple[Ciphertext, np.ndarray]:
     """Stack each DISTINCT scan column once + the [A] per-atom gather.
 
     `stack(column)` is the column's scan ciphertext (`scan_column` on a
-    Table, [W, K, n]; `scan_stack` on a ShardedTable, [S, W, K, n]); the
-    unique axis goes first, or after the shard dim.  One distinct column
+    Table, [W, K, n]; `scan_stack` on a ShardedTable, [S, W, K, n] as
+    `ShardStack` slabs, stacked slab by slab); the unique axis goes
+    first, or after the shard dim.  One distinct column
     is a view (no copy): the served batches over one column never
     duplicate the table."""
     order: Dict[str, int] = {}
@@ -111,7 +86,10 @@ def dedup_atom_columns(table, atoms: List[P.Atom],
         order.setdefault(a.column, len(order))
     cols = [stack(c) for c in order]
     axis = 0 if cols[0].c0.dim() == 3 else 1
-    if len(cols) == 1:
+    if isinstance(cols[0].c0, ShardStack):        # a placed table's slabs
+        uniq = Ciphertext(ShardStack.stack([c.c0 for c in cols], axis),
+                          ShardStack.stack([c.c1 for c in cols], axis))
+    elif len(cols) == 1:
         uniq = Ciphertext(cols[0].c0.unsqueeze(axis),
                           cols[0].c1.unsqueeze(axis))
     else:
@@ -166,7 +144,8 @@ def fused_eval(ks: KeySet, table: Table, atoms: List[P.Atom], *,
                 obs.count("eval.launches")
                 obs.count("eval.tiles")
                 obs.count("eval.lanes", A * t)
-                vals = tsp.sync(dedup_eval(ks, uniq, sel, bounds, lo, t))
+                vals = tsp.sync(KO.dedup_tile_values(ks, uniq, sel, bounds,
+                                                     lo, t))
                 out[:, lo:lo + t] = vals.cpu().numpy()
         return out
 

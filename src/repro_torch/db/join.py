@@ -144,29 +144,46 @@ def pair_eval_values(ks: KeySet, left_ct: Ciphertext, right_ct: Ciphertext,
                      stats: Optional[JoinStats] = None) -> np.ndarray:
     """RAW eval values for every (left row, right row) pair: [L, R] int64.
 
-    Left rows chunk into tiles of T rows (a power of two with T·R within
-    the pair budget), each tile ONE pass of `kernels.ops.PairGrid` over
-    the [T, R] grid.  Thresholds are NOT applied — callers decode with
-    the join's own τ host-side."""
+    Left rows chunk into tiles of T left rows (a power of two with T·R
+    within the pair budget), each tile ONE pass of `kernels.ops.PairGrid`
+    over the [T, R] grid (`grids_eval_values` over one grid).
+    Thresholds are NOT applied — callers decode with the join's own τ
+    host-side."""
+    return grids_eval_values([KO.PairGrid(ks, left_ct, right_ct)],
+                             block_pairs=block_pairs, stats=stats)[0]
+
+
+def grids_eval_values(grids: List[KO.PairGrid], *,
+                      block_pairs: Optional[int] = None,
+                      stats: Optional[JoinStats] = None) -> np.ndarray:
+    """RAW eval values of G pair grids of one shape, [G, L, R] int64:
+    each grid's left rows in tiles of T (a power of two with T·R within
+    the pair budget), one `PairGrid.tile` pass each.  Tile `lo` of every
+    grid is launched before any of them is read, so grids on different
+    cards (a placed table's slabs, `db.shard.join`) run side by side;
+    each tile is read to the host as it finishes, so a device holds at
+    most one [T, R] tile per grid.  `stats` counts one Eval call per
+    tile and every pair."""
     block_pairs = _resolve_block_pairs(block_pairs)
-    L = int(left_ct.c0.shape[0])
-    R = int(right_ct.c0.shape[0])
+    L, R = grids[0].n_left, grids[0].n_right
     T = _grid_tile(block_pairs, L, R)
-    out = np.empty((L, R), dtype=np.int64)
+    out = np.empty((len(grids), L, R), dtype=np.int64)
     with obs.span("join.pair_grid", left=L, right=R, tile=T) as sp:
-        grid = KO.PairGrid(ks, left_ct, right_ct)
         for lo in range(0, L, T):
             t = min(T, L - lo)
-            obs.jit_launch("join.pair_grid", (t, R))
-            obs.count("eval.launches")
-            obs.count("eval.tiles")
-            obs.count("eval.lanes", t * R)
-            out[lo:lo + t] = sp.sync(grid.tile(lo, t)).cpu().numpy()
+            tiles = []
+            for grid in grids:
+                obs.jit_launch("join.pair_grid", (t, R))
+                obs.count("eval.launches")
+                obs.count("eval.tiles")
+                obs.count("eval.lanes", t * R)
+                tiles.append(grid.tile(lo, t))
+            for g, v in enumerate(tiles):
+                out[g, lo:lo + t] = sp.sync(v).cpu().numpy()
             if stats is not None:
-                stats.eval_calls += 1
-        del grid
+                stats.eval_calls += len(grids)
     if stats is not None:
-        stats.pair_compares += L * R
+        stats.pair_compares += len(grids) * L * R
     return out
 
 

@@ -1,13 +1,15 @@
 """repro_torch.db.shard — logically sharded encrypted tables.
 
-Partitions ciphertext rows into S logical shards held on one card
-(`ShardSpec`, decoupled from devices), runs the fused filter stage over
-the shard-stacked columns, resolves OrderBy/TopK with per-shard bitonic
-networks + log-depth cross-shard merge networks, and fans lookups out
-over per-shard sorted indexes in one lane-batched launch per step.
+Partitions ciphertext rows into S logical shards (`ShardSpec`,
+decoupled from devices) placed on a shard mesh of one or several cards
+(`ShardSpec.place`: per-card slabs of each column stack), runs the fused
+filter stage over the shard-stacked columns (per slab, on its card),
+resolves OrderBy/TopK with per-shard bitonic networks + log-depth
+cross-shard merge networks, and fans lookups out over per-shard sorted
+indexes in one lane-batched launch per step.
 Decrypted answers are independent of the shard count.
 
-    ShardSpec          — logical shard count
+    ShardSpec          — logical shard count + the shard mesh
     ShardedTable       — [S, N_sp, ...] stacked encrypted columns
     ShardedIndex       — per-shard SortedIndexes, fan-out binary search
     execute_sharded    — the sharded plan executor (db.execute dispatches

@@ -7,11 +7,13 @@ with the shard dim threaded through:
      `[S, U, W]` stacked unique columns (W = base block + delta block per
      shard), in power-of-two row tiles with S·A·T lanes within the lane
      budget, as the reference tiles them.  Each shard's part of a tile
-     is `db.executor.dedup_eval` over its rows, addressed by offset (no
-     tile copy): on the card one gadget-Eval launch per shard per unique
-     column, or in paper mode one paper-Eval launch on the bounds and
-     one per unique column, per shard.  Thresholds apply host-side per
-     shard per atom.
+     is `kernels.ops.dedup_tile_values` over its rows, addressed by
+     offset (no tile copy): on the card one gadget-Eval launch per shard
+     per unique column, or in paper mode one paper-Eval launch on the
+     bounds and one per unique column, per shard.  On a placed table
+     each slab's shards launch on the card that holds them (the
+     reference's `shard_map` branch, `kernels.ops.shard_eval_values`).
+     Thresholds apply host-side per shard per atom.
   2. COMBINE.  The boolean tree folds per shard; global row masks come
      from the id map.
   3. ORDER / TOPK.  Per-shard bitonic networks + log-depth cross-shard
@@ -26,7 +28,6 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch import obs
 from repro_torch.core import compare as C
@@ -49,21 +50,6 @@ class ShardedExecStats(X.ExecStats):
     merge_compares: int = 0              # cross-shard merge networks only
 
 
-def sharded_tile_values(ks: KeySet, uniq: Ciphertext, sel: np.ndarray,
-                        bounds: Ciphertext, row_offset: int,
-                        rows: int) -> torch.Tensor:
-    """Raw eval values [S, A, rows] of one row tile of every shard's
-    deduped column stack ([S, U, W, K, n]) against the [A, 1] atom
-    bounds: `db.executor.dedup_eval` per shard, each shard's rows
-    addressed by offset (gadget mode: one Eval launch per shard per
-    unique column; paper mode: one on the bounds and one per unique
-    column, per shard)."""
-    return torch.stack([
-        X.dedup_eval(ks, Ciphertext(uniq.c0[s], uniq.c1[s]), sel, bounds,
-                     row_offset, rows)
-        for s in range(uniq.c0.shape[0])])
-
-
 def sharded_fused_eval(ks: KeySet, stable: ShardedTable,
                        atoms: List[P.Atom], *,
                        lane_budget: Optional[int] = None) -> np.ndarray:
@@ -74,15 +60,22 @@ def sharded_fused_eval(ks: KeySet, stable: ShardedTable,
 
     Each DISTINCT column's shard stack moves once and the shard row axis
     tiles into power-of-two chunks with S·A·T lanes within the lane
-    budget, one `sharded_tile_values` pass per tile."""
+    budget.  A tile runs per slab on the device that holds it
+    (`kernels.ops.shard_eval_values`, `sel` applied per slab against the
+    bounds copied to each device): d slabs on a placed table
+    (`ShardSpec.shard_map_ok`, the reference's `shard_map` branch), one
+    slab on the table's device otherwise."""
     with obs.span("shard.fused_eval", shards=stable.num_shards,
-                  atoms=len(atoms), rows=stable.shard_scan_width):
+                  atoms=len(atoms), rows=stable.shard_scan_width) as sp:
         S, A = stable.num_shards, len(atoms)
         W = stable.shard_scan_width
         uniq, sel = X.dedup_atom_columns(stable, atoms, stable.scan_stack)
         bounds = X.stack_atom_bounds(atoms)
         T = KO.lane_tile(W, S * A, lane_budget)
         obs.count("bytes.moved", 2 * (uniq.c0.nbytes + bounds.c0.nbytes))
+        spec = stable.spec
+        if spec.shard_map_ok:
+            sp.set(shard_map=True)
         out = np.empty((S, A, W), dtype=np.int64)
         for lo in range(0, W, T):
             t = min(T, W - lo)
@@ -92,9 +85,11 @@ def sharded_fused_eval(ks: KeySet, stable: ShardedTable,
                 obs.count("eval.launches")
                 obs.count("eval.tiles")
                 obs.count("eval.lanes", S * A * t)
-                vals = tsp.sync(sharded_tile_values(ks, uniq, sel, bounds,
-                                                    lo, t))
-                out[:, :, lo:lo + t] = vals.cpu().numpy()
+                vals = KO.shard_eval_values(ks, uniq, bounds,
+                                            mesh=spec.mesh,
+                                            axis_name=spec.axis, sel=sel,
+                                            rows=(lo, t))
+                out[:, :, lo:lo + t] = tsp.sync(vals).cpu().numpy()
         return out
 
 

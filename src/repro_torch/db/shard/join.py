@@ -4,10 +4,13 @@ The port of `repro.db.shard.join`.  Both single-table strategies lift
 onto sharded layouts without new comparison machinery:
 
   * NESTED-LOOP.  Every (left shard, right shard) pair is a static
-    [N_l, N_r] sub-grid.  On one card the whole `[S_l, S_r, N_l, N_r]`
-    grid flattens to the `[S_l·N_l, S_r·N_r]` pair matrix of the stacked
-    rows and runs the single-table tiles (`db.join.pair_eval_values`), as
-    the reference's meshless branch does.  Decode thresholds apply
+    [N_l, N_r] sub-grid.  Each left slab flattens to the pair matrix of
+    its stacked rows against every right row and runs the single-table
+    tiles (`kernels.ops.PairGrid`) where it lies: on a placed left table
+    the left slabs stay on their cards and the right rows are copied to
+    each card (no collective: HADES Eval is row-local); unplaced, the
+    one slab is the reference's meshless `[S_l·N_l, S_r·N_r]` pair
+    matrix (`db.join.grids_eval_values`).  Decode thresholds apply
     host-side; `from_table`-sharded tables carry the SAME ciphertext
     rows, so the values equal the unsharded grid's.
 
@@ -34,6 +37,7 @@ from repro_torch.db.shard import executor as SX
 from repro_torch.db.shard.index import ShardedIndex
 from repro_torch.db.shard.spec import ShardSpec
 from repro_torch.db.shard.table import ShardedTable
+from repro_torch.kernels import ops as KO
 
 
 def _as_sharded(ks: KeySet, table) -> ShardedTable:
@@ -41,7 +45,8 @@ def _as_sharded(ks: KeySet, table) -> ShardedTable:
     via `from_table`, which REUSES the ciphertext rows."""
     if isinstance(table, ShardedTable):
         return table
-    return ShardedTable.from_table(ks, table, spec=ShardSpec.create(1))
+    return ShardedTable.from_table(ks, table,
+                                   spec=ShardSpec.create(1, use_mesh=False))
 
 
 def sharded_pair_eval(ks: KeySet, left: ShardedTable, right: ShardedTable,
@@ -49,18 +54,44 @@ def sharded_pair_eval(ks: KeySet, left: ShardedTable, right: ShardedTable,
                       block_pairs: Optional[int] = None,
                       stats: Optional[J.JoinStats] = None) -> np.ndarray:
     """RAW eval values over the full shard-pair grid:
-    [S_l, S_r, N_l, N_r] int64, from the flattened [S_l·N_l, S_r·N_r]
-    pair matrix in `db.join.pair_eval_values`' tiles.  Thresholds are
-    NOT applied here."""
+    [S_l, S_r, N_l, N_r] int64.  Thresholds are NOT applied here.
+
+    Each left slab's rows, flattened where the slab lies, meet every
+    right row (the [S_r·N_r] stacked right rows, copied once to each
+    distinct device) in one `kernels.ops.PairGrid` with that device's
+    `KeySet` replica, and `db.join.grids_eval_values` runs the grids'
+    tiles side by side, one card each (no collective: HADES Eval is
+    row-local).  Unplaced, the one slab is the reference's meshless
+    branch: the [S_l·N_l, S_r·N_r] pair matrix of the stacked rows in
+    the single-table tiles.  On a placed left table
+    (`ShardSpec.shard_map_ok`) `stats` counts as the reference's
+    `shard_map` branch does: one Eval call per chunk of t_r right rows
+    (a power of two with S_r·N_l·t_r within `block_pairs`), and every
+    pair."""
+    block_pairs = J._resolve_block_pairs(block_pairs)
     lct, rct = left.columns[lcol], right.columns[rcol]
     S_l, N_l = lct.c0.shape[:2]
     S_r, N_r = rct.c0.shape[:2]
+    tail = tuple(lct.c0.shape[2:])
 
-    def flat(ct):
-        return Ciphertext(ct.c0.reshape((-1,) + tuple(ct.c0.shape[2:])),
-                          ct.c1.reshape((-1,) + tuple(ct.c1.shape[2:])))
-    vals = J.pair_eval_values(ks, flat(lct), flat(rct),
-                              block_pairs=block_pairs, stats=stats)
+    def rows(x):
+        return x.reshape((-1,) + tail)
+    right_rows = [rows(x.full(left.home)) for x in (rct.c0, rct.c1)]
+    here, grids = {}, []
+    for x0, x1 in zip(lct.c0.slabs, lct.c1.slabs):
+        dev = x0.device
+        if dev not in here:
+            here[dev] = (ks.replica(dev),
+                         Ciphertext(*(x.to(dev) for x in right_rows)))
+        kd, r = here[dev]
+        grids.append(KO.PairGrid(kd, Ciphertext(rows(x0), rows(x1)), r))
+    placed = left.spec.shard_map_ok
+    vals = J.grids_eval_values(grids, block_pairs=block_pairs,
+                               stats=None if placed else stats)
+    if placed and stats is not None:
+        t_r = J._grid_tile(block_pairs, N_r, S_r * N_l)  # pow2, divides N_r
+        stats.eval_calls += len(range(0, N_r, t_r))
+        stats.pair_compares += S_l * S_r * N_l * N_r
     return vals.reshape(S_l, N_l, S_r, N_r).transpose(0, 2, 1, 3)
 
 

@@ -2,9 +2,20 @@
 
 The port of `repro.db.shard.table`.  Rows split into S contiguous,
 balanced chunks; every chunk pads to ONE common power-of-two block size
-N_sp, so each column is a single stacked ciphertext `[S, N_sp, K, n]` on
-the table's device.  Uneven partitions mean shards carry different
-validity masks over the same block size.
+N_sp, so each column is a single stacked ciphertext `[S, N_sp, K, n]`.
+Uneven partitions mean shards carry different validity masks over the
+same block size.
+
+PLACEMENT.  A table is built on its HOME device (its keys'), and
+`ShardSpec.place` splits every stack's leading dim over the spec's
+mesh: each column half is a `parallel.sharding.ShardStack` of d slabs
+`[S/d, N_sp, K, n]`, slab j on mesh position j (d = 1: one slab, the
+whole stack on the home device).  Every reader works on the slabs, one
+code path for every d: `shard`, `gather`, `gather_global`,
+`decrypt_column` answer on the home device, `scan_stack` gives per-slab
+union stacks, and only the Eval launches (`db.shard.executor`,
+`db.shard.join`) run on the slabs' own devices.  Delta runs are plain
+`Table`s on the home device.
 
 Global row ids are the original ingest order: at construction shard s
 owns the contiguous id range [offsets[s], offsets[s+1]), so `from_table`
@@ -43,6 +54,7 @@ from repro_torch.core.keys import KeySet
 from repro_torch.db.shard.spec import ShardSpec
 from repro_torch.db.table import (Table, ZeroPadRows, _zero_pad_rows,
                                   append_rows, fold_seed)
+from repro_torch.parallel.sharding import ShardStack
 
 # seeds of the encryptions of 0 that pad a re-partitioned shard and a
 # compaction fold; they carry no secret
@@ -76,7 +88,8 @@ def _stack_empty(S: int, n_sp: int, like: torch.Tensor) -> Ciphertext:
 
 
 class ShardedTable:
-    """Stacked encrypted columns `[S, N_sp, ...]` + partition bookkeeping."""
+    """Stacked encrypted columns `[S, N_sp, ...]` (placed per the spec) +
+    partition bookkeeping."""
 
     def __init__(self, name: str, columns: Dict[str, Ciphertext],
                  offsets: np.ndarray, spec: ShardSpec, *,
@@ -84,6 +97,7 @@ class ShardedTable:
                  fold_pad_rows: Optional[ZeroPadRows] = None):
         if not columns:
             raise ValueError("sharded table needs at least one column")
+        spec = spec.on(next(iter(columns.values())).c0.device)
         shapes = {c: tuple(ct.c0.shape[:2]) for c, ct in columns.items()}
         S, n_sp = next(iter(shapes.values()))
         if any(v != (S, n_sp) for v in shapes.values()):
@@ -93,9 +107,9 @@ class ShardedTable:
         if n_sp != next_pow2(n_sp):
             raise ValueError(f"per-shard block {n_sp} not a power of two")
         self.name = name
-        self.columns = dict(columns)
-        self.offsets = np.asarray(offsets, np.int64)
         self.spec = spec
+        self.columns = self._place(columns)
+        self.offsets = np.asarray(offsets, np.int64)
         self.zero_pad_rows = zero_pad_rows or _zero_pad_rows
         self.fold_pad_rows = fold_pad_rows or _seeded_zeros(_FOLD_PAD_SEED)
         self.shard_rows = np.diff(self.offsets)          # [S] valid counts
@@ -127,6 +141,13 @@ class ShardedTable:
         self.version = 0
         self._delta_index_cache: Dict[tuple, tuple] = {}
 
+    def _place(self, columns: Dict[str, Ciphertext]
+               ) -> Dict[str, Ciphertext]:
+        """Stacks built on the home device, placed per the spec: every
+        column half a `ShardStack`."""
+        return {c: Ciphertext(ShardStack.of(ct.c0), ShardStack.of(ct.c1))
+                for c, ct in self.spec.place(dict(columns)).items()}
+
     # -- construction ------------------------------------------------------
 
     @classmethod
@@ -138,7 +159,8 @@ class ShardedTable:
         """Encrypt host arrays straight into the sharded layout: shard s's
         chunk encrypts via `Table.from_arrays` under `fold_seed(seed, s)`
         (or `samples[s]`, that shard's pre-drawn per-column samples),
-        padded to the common N_sp block."""
+        padded to the common N_sp block, on the keys' device; then the
+        stacks are placed (`ShardSpec.place`)."""
         n_rows = len(next(iter(data.values())))
         offsets = partition_offsets(n_rows, spec.num_shards)
         n_sp = next_pow2(int(np.diff(offsets).max()))
@@ -208,6 +230,12 @@ class ShardedTable:
     def n_padded_per_shard(self) -> int:
         """The common power-of-two per-shard block size N_sp."""
         return next(iter(self.columns.values())).c0.shape[1]
+
+    @property
+    def home(self) -> torch.device:
+        """The device the table was built on and answers on (the mesh's
+        position 0)."""
+        return next(iter(self.columns.values())).c0.device
 
     @property
     def column_names(self) -> tuple:
@@ -370,7 +398,8 @@ class ShardedTable:
         merges): append each shard's delta rows onto the end of its base
         block, growing the common block to the next power of two if any
         shard overflows; `fold_pad_rows` encryptions of 0 pad the slack
-        and no row is re-encrypted.  Global ids are unchanged; the id map
+        and no row is re-encrypted.  Each new stack is built on the home
+        device and placed.  Global ids are unchanged; the id map
         flips the folded rows from delta to base ownership."""
         if not self.has_delta:
             return
@@ -379,10 +408,11 @@ class ShardedTable:
         new_rows = self.shard_rows + d
         new_sp = next_pow2(int(new_rows.max()))
         for ci, (cname, ct) in enumerate(list(self.columns.items())):
-            stack = _stack_empty(S, new_sp, ct.c0)
+            stack = _stack_empty(S, new_sp, ct.c0.slabs[0])
             for s in range(S):
                 b, ds = int(self.shard_rows[s]), int(d[s])
-                stack.c0[s, :b], stack.c1[s, :b] = ct.c0[s, :b], ct.c1[s, :b]
+                stack.c0[s, :b] = ct.c0.shard(s)[:b]
+                stack.c1[s, :b] = ct.c1.shard(s)[:b]
                 if ds:
                     dct = self.deltas[s].columns[cname]
                     stack.c0[s, b:b + ds] = dct.c0[:ds]
@@ -393,7 +423,7 @@ class ShardedTable:
                     stack.c0[s, b + ds:] = pad.c0
                     stack.c1[s, b + ds:] = pad.c1
                     del pad
-            self.columns[cname] = stack
+            self.columns[cname] = self._place({cname: stack})[cname]
             del ct, stack                      # the old stack frees here
         slot_gid = np.full((S, new_sp), -1, np.int64)
         slot_gid[:, :n_sp] = self._slot_gid
@@ -452,41 +482,51 @@ class ShardedTable:
     # -- access ------------------------------------------------------------
 
     def shard(self, s: int) -> Table:
-        """Shard s's BASE block as a plain `Table` view."""
-        cols = {c: Ciphertext(ct.c0[s], ct.c1[s])
+        """Shard s's BASE block as a plain `Table` on the home device (a
+        view when it lies there)."""
+        cols = {c: Ciphertext(ct.c0.shard(s), ct.c1.shard(s))
                 for c, ct in self.columns.items()}
         return Table(f"{self.name}.s{s}", cols, int(self.shard_rows[s]))
 
     def gather(self, name: str, s: int, local_rows) -> Ciphertext:
-        """Ciphertext rows of shard s's BASE block at local slots."""
+        """Ciphertext rows of shard s's BASE block at local slots, on the
+        home device."""
         ct = self.columns[name]
-        idx = torch.as_tensor(np.asarray(local_rows, np.int64),
-                              device=ct.c0.device)
-        return Ciphertext(ct.c0[s, idx], ct.c1[s, idx])
+        slots = np.asarray(local_rows, np.int64)
+        shards = np.full(slots.shape, s, np.int64)
+        return Ciphertext(ct.c0.rows(shards, slots),
+                          ct.c1.rows(shards, slots))
 
     def scan_stack(self, name: str) -> Ciphertext:
         """The named column over the UNION scan: `[S, shard_scan_width,
-        ...]` — each shard's base block then its delta run, zero-filled to
-        the common delta block (those lanes are never decoded).  With no
-        pending delta this is the base stack itself."""
+        ...]` per slab — each shard's base block then its delta run
+        (moved to the slab's device), zero-filled to the common delta
+        block (those lanes are never decoded).  With no pending delta
+        this is the base stack itself."""
         ct = self.columns[name]
         D = self.delta_block
         if D == 0:
             return ct
         N = self.n_padded_per_shard
-        out = _stack_empty(self.num_shards, N + D, ct.c0)
-        out.c0[:, :N], out.c1[:, :N] = ct.c0, ct.c1
-        out.c0[:, N:], out.c1[:, N:] = 0, 0
-        for s, d in enumerate(self.deltas):
-            if d is not None:
-                dct = d.columns[name]
-                rows = dct.c0.shape[0]
-                out.c0[s, N:N + rows], out.c1[s, N:N + rows] = dct.c0, dct.c1
-        return out
+
+        def union(stack: ShardStack, half: str) -> ShardStack:
+            slabs = []
+            for j, slab in enumerate(stack.slabs):
+                out = slab.new_zeros((slab.shape[0], N + D)
+                                     + tuple(slab.shape[2:]))
+                out[:, :N] = slab
+                for i in range(slab.shape[0]):
+                    d = self.deltas[j * stack.per_slab + i]
+                    if d is not None:
+                        rows = getattr(d.columns[name], half)
+                        out[i, N:N + rows.shape[0]] = rows.to(slab.device)
+                slabs.append(out)
+            return ShardStack(slabs)
+        return Ciphertext(union(ct.c0, "c0"), union(ct.c1, "c1"))
 
     def gather_global(self, name: str, global_rows) -> Ciphertext:
         """Ciphertext rows at GLOBAL row ids (base slots and pending delta
-        rows alike)."""
+        rows alike), on the home device."""
         gids = np.asarray(global_rows, np.int64)
         ct = self.columns[name]
         dev = ct.c0.device
@@ -494,14 +534,14 @@ class ShardedTable:
         in_delta = self._gid_in_delta[gids]
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         if not in_delta.any():
-            return Ciphertext(ct.c0[t(s), t(pos)], ct.c1[t(s), t(pos)])
+            return Ciphertext(ct.c0.rows(s, pos), ct.c1.rows(s, pos))
         shape = (gids.size,) + tuple(ct.c0.shape[2:])
         c0 = torch.zeros(shape, dtype=ct.c0.dtype, device=dev)
         c1 = torch.zeros_like(c0)
         bi = np.nonzero(~in_delta)[0]
         if bi.size:
-            c0[t(bi)] = ct.c0[t(s[bi]), t(pos[bi])]
-            c1[t(bi)] = ct.c1[t(s[bi]), t(pos[bi])]
+            c0[t(bi)] = ct.c0.rows(s[bi], pos[bi])
+            c1[t(bi)] = ct.c1.rows(s[bi], pos[bi])
         for sh in np.unique(s[in_delta]):
             di = np.nonzero(in_delta & (s == sh))[0]
             dct = self.deltas[int(sh)].columns[name]
@@ -514,14 +554,16 @@ class ShardedTable:
         rows of the global id space in id order (pending delta rows and
         tombstoned rows included — filter with `alive`)."""
         ct = self.columns[name]
-        flat = Ciphertext(ct.c0.reshape((-1,) + tuple(ct.c0.shape[2:])),
-                          ct.c1.reshape((-1,) + tuple(ct.c1.shape[2:])))
-        step = E.ENC_CHUNK_ROWS
-        vals = np.concatenate([
-            E.decrypt(ks, Ciphertext(flat.c0[lo:lo + step],
-                                     flat.c1[lo:lo + step])).cpu().numpy()
-            for lo in range(0, flat.c0.shape[0], step)])
-        vals = vals.reshape(self.num_shards, self.n_padded_per_shard)
+        step, home = E.ENC_CHUNK_ROWS, self.home
+        chunks = []
+        for x0, x1 in zip(ct.c0.slabs, ct.c1.slabs):    # each slab's rows
+            f0 = x0.reshape((-1,) + tuple(x0.shape[2:]))
+            f1 = x1.reshape((-1,) + tuple(x1.shape[2:]))
+            chunks += [E.decrypt(ks, Ciphertext(
+                f0[lo:lo + step].to(home), f1[lo:lo + step].to(home))
+            ).cpu().numpy() for lo in range(0, f0.shape[0], step)]
+        vals = np.concatenate(chunks).reshape(self.num_shards,
+                                              self.n_padded_per_shard)
         out = np.zeros(self.n_total, vals.dtype)
         base = ~self._gid_in_delta
         g = np.nonzero(base)[0]

@@ -13,6 +13,7 @@ for.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -159,3 +160,14 @@ def stream_handle(device) -> int:
     if index is None:
         index = torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def on_device(index: int):
+    """Make card `index` the thread's current device around a C entry's
+    call: an entry launches on the current device, on the operands'
+    stream (`stream_handle`), so the two must be the same card.  Nothing
+    to do when it already is current (one card, or the card in use)."""
+    import torch
+    if torch._C._cuda_getDevice() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)

@@ -282,28 +282,31 @@ def eval_coeff0_gadget(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
     lib = _build.load("cmp_eval")
     stream = _build.stream_handle(dev)
     sel = np.asarray(sel, np.int64)
-    for u in dict.fromkeys(sel.tolist()):       # unique, first-seen order
-        atoms = np.nonzero(sel == u)[0]
-        if len(atoms) == A:
-            b0, b1, dst = bounds_c0, bounds_c1, out
-        else:
-            idx = torch.as_tensor(atoms, device=dev)
-            b0, b1 = bounds_c0[idx].contiguous(), bounds_c1[idx].contiguous()
-            dst = torch.empty((len(atoms), rows, K), dtype=torch.int64,
-                              device=dev)
-        b_rstride = K * n if per_lane else 0
-        b_astride = rows * K * n if per_lane else K * n
-        c0 = uniq_c0[u, row_offset:row_offset + rows]
-        c1 = uniq_c1[u, row_offset:row_offset + rows]
-        rc = lib.hades_eval_gadget(
-            c0.data_ptr(), c1.data_ptr(), b0.data_ptr(), b1.data_ptr(),
-            b_astride, b_rstride, cek_bytes.data_ptr(), qs.data_ptr(),
-            int(scale), dst.data_ptr(), len(atoms), rows, K, n, D,
-            int(log_base), stream)
-        _build.check(rc, "eval_coeff0_gadget")
-        _build.count_launch("eval_coeff0_gadget")
-        if dst is not out:
-            out[idx] = dst
+    # the launches go to the current device: make it the operands' card
+    with _build.on_device(dev.index):
+        for u in dict.fromkeys(sel.tolist()):   # unique, first-seen order
+            atoms = np.nonzero(sel == u)[0]
+            if len(atoms) == A:
+                b0, b1, dst = bounds_c0, bounds_c1, out
+            else:
+                idx = torch.as_tensor(atoms, device=dev)
+                b0 = bounds_c0[idx].contiguous()
+                b1 = bounds_c1[idx].contiguous()
+                dst = torch.empty((len(atoms), rows, K), dtype=torch.int64,
+                                  device=dev)
+            b_rstride = K * n if per_lane else 0
+            b_astride = rows * K * n if per_lane else K * n
+            c0 = uniq_c0[u, row_offset:row_offset + rows]
+            c1 = uniq_c1[u, row_offset:row_offset + rows]
+            rc = lib.hades_eval_gadget(
+                c0.data_ptr(), c1.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+                b_astride, b_rstride, cek_bytes.data_ptr(), qs.data_ptr(),
+                int(scale), dst.data_ptr(), len(atoms), rows, K, n, D,
+                int(log_base), stream)
+            _build.check(rc, "eval_coeff0_gadget")
+            _build.count_launch("eval_coeff0_gadget")
+            if dst is not out:
+                out[idx] = dst
     return out
 
 
@@ -432,10 +435,12 @@ def eval_coeff0_paper(a0, a1, cek_rev, qs, scale, b0=None,
     else:
         (pb0, sb0), (pb1, sb1) = _rows(b0, n), _rows(b1, n)
         p_b0, p_b1 = pb0.data_ptr(), pb1.data_ptr()
-    rc = _paper_launch()(
-        pa0.data_ptr(), sa0, pa1.data_ptr(), sa1, p_b0, sb0, p_b1, sb1,
-        cek_rev.data_ptr(), qs.data_ptr(), int(scale), out.data_ptr(), B,
-        K, n, _build.stream_handle(a1.get_device()))
+    dev = a1.get_device()
+    with _build.on_device(dev):
+        rc = _paper_launch()(
+            pa0.data_ptr(), sa0, pa1.data_ptr(), sa1, p_b0, sb0, p_b1, sb1,
+            cek_rev.data_ptr(), qs.data_ptr(), int(scale), out.data_ptr(),
+            B, K, n, _build.stream_handle(dev))
     _build.check(rc, "eval_coeff0_paper")
     _build.count_launch("eval_coeff0_paper")
     return out

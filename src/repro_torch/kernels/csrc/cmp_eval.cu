@@ -676,14 +676,26 @@ __global__ void __launch_bounds__(32 * kPaperWideWarps)
   }
 }
 
+// What the launches below ask of a card is kept per card: an entry
+// launches on the thread's current device (the wrappers make it the
+// operands' card), and one process may launch on several cards.
+constexpr int kMaxCards = 64;
+
+static int current_card() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev;
+}
+
+// SMs of the current card (0 beyond kMaxCards, where launch_wide refuses)
 static int sm_count() {
-  static int sms = 0;                  // one card per process
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
+  static int sms[kMaxCards] = {};
+  const int card = current_card();
+  if (card < 0 || card >= kMaxCards) return 0;
+  if (sms[card] == 0)
+    cudaDeviceGetAttribute(&sms[card], cudaDevAttrMultiProcessorCount,
+                           card);
+  return sms[card];
 }
 
 template <int N, int S, bool HAS_B>
@@ -709,8 +721,12 @@ template <int N, bool HAS_B>
 static int launch_wide(const PaperArgs& p, int K, cudaStream_t stream) {
   constexpr int threads = 32 * kPaperWideWarps;
   constexpr size_t smem = (size_t)N * sizeof(int64_t);
-  static int per_sm = 0;              // resident blocks per SM, once
-  if (per_sm == 0) {
+  // resident blocks per SM, once per card: the shared-memory opt-in is
+  // an attribute of the kernel on the current card
+  static int per_sm[kMaxCards] = {};
+  const int card = current_card();
+  if (card < 0 || card >= kMaxCards) return (int)cudaErrorInvalidDevice;
+  if (per_sm[card] == 0) {
     cudaFuncSetAttribute(eval_paper_wide<N, HAS_B>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
@@ -719,10 +735,10 @@ static int launch_wide(const PaperArgs& p, int K, cudaStream_t stream) {
         &nb, eval_paper_wide<N, HAS_B>, threads, smem);
     if (e != cudaSuccess) return (int)e;
     if (nb < 1) return (int)cudaErrorInvalidConfiguration;
-    per_sm = nb;
+    per_sm[card] = nb;
   }
   // one resident wave, a power of two of blocks per tower
-  long long g = (long long)per_sm * sm_count() / K;
+  long long g = (long long)per_sm[card] * sm_count() / K;
   long long pow2 = 1;
   while (2 * pow2 <= g) pow2 *= 2;
   const long long need = (p.lanes + kPaperWideWarps - 1) / kPaperWideWarps;

@@ -104,9 +104,10 @@ def ntt_br(x: torch.Tensor, ring: R.Ring, *, fwd: bool = True
     src = x.reshape(rows, K, n).contiguous()
     out = torch.empty_like(src)
     lib = _build.load("ntt")
-    rc = lib.hades_ntt_br(src.data_ptr(), out.data_ptr(), rows,
-                          ring.shoup.data_ptr(), ring.q_arr.data_ptr(), K, n,
-                          int(fwd), _build.stream_handle(x.device))
+    with _build.on_device(x.device.index):
+        rc = lib.hades_ntt_br(src.data_ptr(), out.data_ptr(), rows,
+                              ring.shoup.data_ptr(), ring.q_arr.data_ptr(),
+                              K, n, int(fwd), _build.stream_handle(x.device))
     _build.check(rc, "ntt_br")
     if rows:
         _build.count_launch("ntt_br_fwd" if fwd else "ntt_br_inv")
@@ -137,10 +138,11 @@ def negacyclic_mul(a: torch.Tensor, b: torch.Tensor,
     pb, sb = _operand(b, batch, K, n)
     out = torch.empty((rows, K, n), dtype=torch.int64, device=a.device)
     lib = _build.load("ntt")
-    rc = lib.hades_negacyclic_mul(
-        pa.data_ptr(), sa, pb.data_ptr(), sb, out.data_ptr(), rows,
-        ring.shoup.data_ptr(), ring.q_arr.data_ptr(), K, n,
-        _build.stream_handle(a.device))
+    with _build.on_device(a.device.index):
+        rc = lib.hades_negacyclic_mul(
+            pa.data_ptr(), sa, pb.data_ptr(), sb, out.data_ptr(), rows,
+            ring.shoup.data_ptr(), ring.q_arr.data_ptr(), K, n,
+            _build.stream_handle(a.device))
     _build.check(rc, "negacyclic_mul")
     if rows:
         _build.count_launch("negacyclic_mul")
@@ -174,10 +176,11 @@ def negacyclic_mul_ntt(a: torch.Tensor, b_br: torch.Tensor, ring: R.Ring,
     key = b_shoup.contiguous()
     out = torch.empty((rows, K, n), dtype=torch.int64, device=a.device)
     lib = _build.load("ntt")
-    rc = lib.hades_negacyclic_mul_ntt(
-        pa.data_ptr(), sa, key.data_ptr(), out.data_ptr(), rows,
-        ring.shoup.data_ptr(), ring.q_arr.data_ptr(), K, n,
-        _build.stream_handle(a.device))
+    with _build.on_device(a.device.index):
+        rc = lib.hades_negacyclic_mul_ntt(
+            pa.data_ptr(), sa, key.data_ptr(), out.data_ptr(), rows,
+            ring.shoup.data_ptr(), ring.q_arr.data_ptr(), K, n,
+            _build.stream_handle(a.device))
     _build.check(rc, "negacyclic_mul_ntt")
     if rows:
         _build.count_launch("negacyclic_mul_ntt")

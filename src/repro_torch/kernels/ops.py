@@ -108,6 +108,32 @@ def paper_coeff0(ks: KeySet, ct0: Ciphertext,
                                 b0, b1)
 
 
+def dedup_tile_values(ks: KeySet, uniq: Ciphertext, sel, bounds: Ciphertext,
+                      row_offset: int, rows: int) -> torch.Tensor:
+    """Raw eval values [A, rows] of one row tile of a deduped column stack
+    ([U, W, K, n]) against the [A, 1] atom bounds.
+
+    Gadget mode: one Eval-kernel launch per unique column, each atom's
+    column gathered by `sel` inside the kernel.  Paper mode: `eval_value`
+    is linear in the ciphertext pair, so the column side is evaluated
+    once per unique column of the tile (the paper kernel's column form,
+    addressed by row offset, no copy) and once on the [A] bounds; each
+    atom lane is then a gather by `sel` + coefficient-0 subtract —
+    bit-identical values."""
+    if ks.params.mode != "paper":
+        return gadget_tile_values(ks, uniq, sel, bounds.c0[:, 0],
+                                  bounds.c1[:, 0], row_offset, rows)
+    tile = slice(row_offset, row_offset + rows)
+    g_col = torch.stack([
+        paper_coeff0(ks, Ciphertext(uniq.c0[u, tile], uniq.c1[u, tile]))
+        for u in range(uniq.c0.shape[0])])                  # [U, rows, K]
+    g_bnd = paper_coeff0(ks, Ciphertext(bounds.c0[:, 0],
+                                        bounds.c1[:, 0]))     # [A, K]
+    idx = torch.as_tensor(np.asarray(sel, np.int64), device=uniq.c0.device)
+    diff = (g_col[idx] - g_bnd[:, None]) % ks.ring.q_arr[:, 0]
+    return R.crt_centered(ks.params, diff)
+
+
 def eval_values(ks: KeySet, ct0: Ciphertext, ct1: Ciphertext) -> torch.Tensor:
     """Kernel-backed centered eval values of lane pairs (Alg. 2 lines
     2-4, no threshold).  ct0, ct1: [B, K, n] -> [B]."""
@@ -159,8 +185,8 @@ class PairGrid:
     each tile negates its t left rows; a tile is ONE kernel launch over
     R rows x t atoms, every 16-row block of the kernel full.
 
-    Paper mode uses the Eval's linearity mod q (the executor's
-    `dedup_eval` factoring): each side is evaluated once in column form
+    Paper mode uses the Eval's linearity mod q (the `dedup_tile_values`
+    factoring): each side is evaluated once in column form
     (`paper_coeff0`, one launch per side), and a tile is the coefficient-0
     difference of its t left values against the R right values.
 
@@ -170,6 +196,7 @@ class PairGrid:
     def __init__(self, ks: KeySet, left: Ciphertext, right: Ciphertext):
         self.ks = ks
         self.left = left
+        self.n_left = int(left.c0.shape[0])
         self.n_right = int(right.c0.shape[0])
         if ks.params.mode == "paper":
             self.f_left = paper_coeff0(ks, left)            # [L, K]
@@ -191,3 +218,56 @@ class PairGrid:
         b1 = R.neg(ring, self.left.c1[lo:lo + t])
         return gadget_tile_values(ks, self.neg_right, np.zeros(t, np.int64),
                                   b0, b1, 0, self.n_right)
+
+
+# ---------------------------------------------------------------------------
+# shard-aware eval entry (repro_torch.db.shard)
+# ---------------------------------------------------------------------------
+
+def slab_scan_values(ks: KeySet, uniq: Ciphertext, sel, bounds: Ciphertext,
+                     row_offset: int, rows: int) -> torch.Tensor:
+    """Raw eval values [s, A, rows] of one row tile of the fused filter
+    scan over a slab of shards' deduped column stacks ([s, U, W, K, n],
+    all on one device) against the [A, 1] atom bounds on that device:
+    `dedup_tile_values` per shard, its rows addressed by offset (gadget
+    mode: one Eval launch per shard per unique column; paper mode: one
+    on the bounds and one per unique column, per shard)."""
+    return torch.stack([
+        dedup_tile_values(ks, Ciphertext(uniq.c0[i], uniq.c1[i]), sel,
+                          bounds, row_offset, rows)
+        for i in range(uniq.c0.shape[0])])
+
+
+def shard_eval_values(ks: KeySet, ct0: Ciphertext, ct1: Ciphertext, *,
+                      mesh=None, axis_name: str = "shard", sel,
+                      rows: Optional[tuple] = None) -> torch.Tensor:
+    """Raw eval values [S, A, rows] of one row tile of the fused filter
+    scan over a shard-leading stack, each slab on the device that holds
+    it: the port of the reference's `shard_map` scan.
+
+    ct0 is every shard's deduped columns [S, U, W, K, n] as
+    `parallel.sharding.ShardStack` slabs (one slab when unplaced; a
+    whole tensor is split over `mesh` here), ct1 the [A, 1, K, n] atom
+    bounds, copied once per call to each distinct device, `sel` the [A]
+    per-atom gather into U, applied per slab, and `rows` = (offset,
+    count) the row tile (default: every row).  Each slab evaluates with
+    its device's `KeySet` replica (`KeySet.replica`) through
+    `slab_scan_values` (a CUDA slab launches the kernels, a CPU slab
+    runs the plain versions).  HADES Eval is row-local, so no slab reads
+    another's rows.  Every slab's work is launched before any result is
+    read; the values are then gathered on the home device (slab 0's)."""
+    from repro_torch.parallel.sharding import ShardStack, shard_leading
+    if mesh is not None and not (isinstance(ct0.c0, ShardStack)
+                                 and ct0.c0.devices == tuple(mesh.devices)):
+        ct0 = shard_leading(mesh, ct0, axis_name)
+    c0, c1 = ShardStack.of(ct0.c0), ShardStack.of(ct0.c1)
+    lo, t = rows if rows is not None else (0, int(c0.shape[2]))
+    here = {}
+    for dev in dict.fromkeys(c0.devices):
+        here[dev] = (ks.replica(dev),
+                     Ciphertext(ct1.c0.to(dev), ct1.c1.to(dev)))
+    parts = []
+    for x0, x1 in zip(c0.slabs, c1.slabs):
+        kd, b = here[x0.device]
+        parts.append(slab_scan_values(kd, Ciphertext(x0, x1), sel, b, lo, t))
+    return torch.cat([p.to(c0.device) for p in parts])

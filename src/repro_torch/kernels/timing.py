@@ -58,7 +58,9 @@ def device_ms(fn, launches: int = GRAPH_LAUNCHES,
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # capture on a stream of the current card: torch.cuda.graph's default
+    # capture stream is made once, on whichever card was current then
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
         for _ in range(launches):
             fn()
     graph.replay()

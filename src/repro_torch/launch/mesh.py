@@ -11,10 +11,15 @@ model=8).  The model axis stays at 8: tensor-parallel all-reduces run on
 it every layer, and they must stay inside one NVLink node (a model axis
 of 16 would cross InfiniBand).  `pod` composes with `data` for the batch;
 weights are never sharded across pods.
+
+`make_shard_mesh` is the other kind: the 1-D, one-process mesh of
+devices a sharded table's shards are placed on (`db.shard.ShardSpec`).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,6 +64,68 @@ def make_host_mesh(model_parallel: int = 1):
     n = dist.get_world_size()
     dp = n // model_parallel
     return _mesh((dp, model_parallel), ("data", "model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardMesh:
+    """The 1-D mesh of a sharded table, in one process: an ordered tuple
+    of devices, one per mesh position, and the axis name.  Not a
+    `DeviceMesh` (that needs a rank per device; the database runs in one
+    process).  A device may fill several positions.  Position 0 is the
+    HOME device: the `KeySet`'s, where tables are built and answers
+    land."""
+    devices: Tuple[torch.device, ...]
+    axis: str = "shard"
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Positions on the axis, as the reference's `mesh.shape`."""
+        return {self.axis: len(self.devices)}
+
+    @property
+    def home(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def distinct(self) -> Tuple[torch.device, ...]:
+        """The devices in position order, each once."""
+        return tuple(dict.fromkeys(self.devices))
+
+
+def make_shard_mesh(num_shards: int, *, axis: str = "shard",
+                    devices: Optional[Sequence] = None) -> ShardMesh:
+    """1-D mesh for `repro_torch.db.shard` tables.
+
+    The shard count is LOGICAL (chosen by the table's `ShardSpec`); this
+    picks d = the largest divisor of `num_shards` the positions can
+    supply, so a `[num_shards, ...]` stack always places evenly.
+    `devices=None` means the visible cards (the CPU when there are none);
+    an explicit list may repeat a device, each entry one position (the
+    counterpart of the reference's forced host device count)."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = ([torch.device("cuda", i) for i in range(n)]
+                   or [torch.device("cpu")])
+    devices = [_position(d) for d in devices]
+    if not devices:
+        raise ValueError("a shard mesh needs at least one device")
+    d = 1
+    for cand in range(min(num_shards, len(devices)), 0, -1):
+        if num_shards % cand == 0:
+            d = cand
+            break
+    return ShardMesh(tuple(devices[:d]), axis)
+
+
+def _position(device) -> torch.device:
+    """A mesh position's device, with its index (`cuda` alone is the
+    current card, where a tensor placed on `cuda` would go)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 # H100 SXM5 per-GPU peaks (roofline constants), from the NVIDIA H100

@@ -20,9 +20,13 @@ replicate -- sharding them buys nothing and costs collectives.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Any
+
+import numpy as np
+import torch
 
 from repro_torch.parallel.constrain import (P, _axis_size, mesh_axes,
                                             placements)
@@ -234,3 +238,208 @@ def distribute(mesh, tree: PyTree, specs: PyTree) -> PyTree:
         return distribute_tensor(x, mesh, placements(mesh, spec))
     return tree_map_with_path(place, specs, tree,
                               is_leaf=lambda s: s is None or _is_spec(s))
+
+
+# ---------------------------------------------------------------------------
+# a sharded table's [S, ...] stacks on a one-process shard mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LeadingSharding:
+    """The split of an array's LEADING dim over the `axis` of a shard mesh
+    (`launch.mesh.ShardMesh`): position j holds rows [j·S/d, (j+1)·S/d)
+    on `mesh.devices[j]` (the repro.db sharded-table layout, where
+    ciphertext stacks are [S, ...])."""
+    mesh: Any
+    ndim: int
+    axis: str = "shard"
+
+    @property
+    def spec(self) -> P:
+        """The reference's PartitionSpec of this split."""
+        return P(self.axis, *([None] * (self.ndim - 1)))
+
+    def slices(self, rows: int) -> list:
+        """[(device, slice of the leading dim)] per mesh position."""
+        d = self.mesh.shape[self.axis]
+        if rows % d:
+            raise ValueError(f"{rows} rows do not split over {d} positions")
+        per = rows // d
+        return [(dev, slice(j * per, (j + 1) * per))
+                for j, dev in enumerate(self.mesh.devices)]
+
+
+def leading_sharding(mesh, ndim: int, axis: str = "shard"
+                     ) -> LeadingSharding:
+    """The split of an ndim-dim array's leading dim over `axis`."""
+    return LeadingSharding(mesh, ndim, axis)
+
+
+class ShardStack:
+    """A [S, ...] tensor held as d slabs of [S/d, ...], slab j on mesh
+    position j's device: a sharded table's column stack placed on a shard
+    mesh (`shard_leading`).  Shard s is row s mod S/d of slab s // (S/d).
+    One slab is the whole stack on one device (an unplaced table).
+
+    Readers bring rows to one device (`shard`, `rows`, `full`); the
+    per-device work (the fused scan's `kernels.ops.shard_eval_values`,
+    the join's `db.shard.join.sharded_pair_eval`) reads the slabs where
+    they lie."""
+
+    def __init__(self, slabs):
+        self.slabs = tuple(slabs)
+        if not self.slabs:
+            raise ValueError("a shard stack needs at least one slab")
+        first = self.slabs[0]
+        for x in self.slabs[1:]:
+            if x.shape != first.shape or x.dtype != first.dtype:
+                raise ValueError(
+                    f"ragged slabs: {[tuple(x.shape) for x in self.slabs]}")
+
+    @classmethod
+    def of(cls, x) -> "ShardStack":
+        """`x` as a stack: itself, or a tensor as one slab."""
+        return x if isinstance(x, ShardStack) else cls((x,))
+
+    # -- geometry -------------------------------------------------------
+
+    @property
+    def num_slabs(self) -> int:
+        return len(self.slabs)
+
+    @property
+    def per_slab(self) -> int:
+        """Shards a slab holds (S/d)."""
+        return int(self.slabs[0].shape[0])
+
+    @property
+    def shape(self) -> torch.Size:
+        """The logical [S, ...] shape."""
+        first = self.slabs[0].shape
+        return torch.Size((first[0] * len(self.slabs),) + tuple(first[1:]))
+
+    @property
+    def ndim(self) -> int:
+        return len(self.slabs[0].shape)
+
+    def dim(self) -> int:
+        return self.ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.slabs[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The home device: slab 0's."""
+        return self.slabs[0].device
+
+    @property
+    def devices(self) -> tuple:
+        """Each slab's device, in position order."""
+        return tuple(x.device for x in self.slabs)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(x.nbytes for x in self.slabs)
+
+    def locate(self, s: int) -> tuple:
+        """Shard s -> (slab, row of the slab)."""
+        return divmod(int(s), self.per_slab)
+
+    # -- reads ----------------------------------------------------------
+
+    def shard(self, s: int, device=None) -> torch.Tensor:
+        """Shard s's [...] block on `device` (home by default; a view
+        when it lies there)."""
+        j, i = self.locate(s)
+        return self.slabs[j][i].to(device or self.device)
+
+    def full(self, device=None) -> torch.Tensor:
+        """The logical [S, ...] tensor on `device` (home by default): the
+        slab itself when there is one and it lies there."""
+        device = torch.device(device or self.device)
+        if len(self.slabs) == 1:
+            return self.slabs[0].to(device)
+        return torch.cat([x.to(device) for x in self.slabs])
+
+    def rows(self, shards, slots, device=None) -> torch.Tensor:
+        """Rows at the (shard, slot) pairs, in their order, on `device`
+        (home by default): [m, ...] from the slabs' [S/d, N, ...]."""
+        device = torch.device(device or self.device)
+        shards = np.asarray(shards, np.int64)
+        slots = np.asarray(slots, np.int64)
+        j, i = np.divmod(shards, self.per_slab)
+        used = np.unique(j)
+
+        def take(slab, sel):
+            x = self.slabs[slab]
+            t = lambda a: torch.as_tensor(a, device=x.device)  # noqa: E731
+            return x[t(i[sel]), t(slots[sel])].to(device)
+        if used.size <= 1:
+            return take(int(used[0]) if used.size else 0, slice(None))
+        out = torch.empty((shards.size,) + tuple(self.slabs[0].shape[2:]),
+                          dtype=self.dtype, device=device)
+        for slab in used:
+            sel = np.nonzero(j == slab)[0]
+            out[torch.as_tensor(sel, device=device)] = take(int(slab), sel)
+        return out
+
+    def map(self, fn) -> "ShardStack":
+        """fn applied to every slab where it lies."""
+        return ShardStack(fn(x) for x in self.slabs)
+
+    @staticmethod
+    def stack(stacks, dim: int) -> "ShardStack":
+        """Stacks of one placement stacked slab by slab along `dim` (>= 1;
+        one stack is a view with a new dim of size 1)."""
+        if len(stacks) == 1:
+            return stacks[0].map(lambda x: x.unsqueeze(dim))
+        return ShardStack(torch.stack(slabs, dim=dim)
+                          for slabs in zip(*(s.slabs for s in stacks)))
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.full("cpu").numpy()
+        return out if dtype is None else out.astype(dtype)
+
+    def __repr__(self) -> str:
+        return (f"ShardStack({tuple(self.shape)}, {self.dtype}, "
+                f"slabs={len(self.slabs)}, devices="
+                f"{[str(d) for d in self.devices]})")
+
+
+def _place_leading(x, sharding: LeadingSharding) -> ShardStack:
+    """One [S, ...] tensor as slabs on their devices.  When every
+    position is x's device the slabs are views (no copy); otherwise a
+    slab staying on x's device is a copy, so x itself can be freed.  A
+    stack already placed so is returned as it is."""
+    if isinstance(x, ShardStack):
+        if x.devices == tuple(sharding.mesh.devices):
+            return x
+        x = x.full()
+    parts = sharding.slices(int(x.shape[0]))
+    here = all(dev == x.device for dev, _ in parts)
+    slabs = []
+    for dev, rows in parts:
+        piece = x[rows]
+        if dev != x.device:
+            piece = piece.to(dev)
+        elif not here:
+            piece = piece.clone()
+        slabs.append(piece)
+    return ShardStack(slabs)
+
+
+def shard_leading(mesh, tree: PyTree, axis: str = "shard") -> PyTree:
+    """Every tensor leaf of `tree` with its leading dim split over
+    `axis`: a `ShardStack` of per-position slabs on their devices.
+
+    Used by `db.shard.ShardSpec.place` to pin a sharded table's column
+    stacks to the mesh at ingest, so each later Eval launch runs on the
+    card that holds its rows."""
+    def place(_, x):
+        if isinstance(x, (torch.Tensor, ShardStack)):
+            return _place_leading(x, leading_sharding(mesh, x.ndim, axis))
+        return x
+    return tree_map_with_path(place, tree,
+                              is_leaf=lambda x: isinstance(x, ShardStack))

@@ -63,23 +63,6 @@ ABSENT = {
     ("db.table", "column_key"):
         "a jax.random key per column; the port derives a seed per column "
         "(db.table.column_seed) for its torch.Generator",
-    ("kernels.ops", "shard_eval_values"):
-        "multi-GPU shard placement (ROADMAP.md queue 1, item 13b)",
-    ("db.shard.spec.ShardSpec", "mesh"):
-        "multi-GPU shard placement (ROADMAP.md queue 1, item 13b)",
-    ("db.shard.spec.ShardSpec", "place"):
-        "multi-GPU shard placement (ROADMAP.md queue 1, item 13b)",
-    ("db.shard.spec.ShardSpec", "placeable"):
-        "multi-GPU shard placement (ROADMAP.md queue 1, item 13b)",
-    ("launch.mesh", "make_shard_mesh"):
-        "the 1-D mesh of a sharded table: multi-GPU shard placement "
-        "(ROADMAP.md queue 1, item 13b)",
-    ("parallel.sharding", "leading_sharding"):
-        "a sharded table's stack placement: multi-GPU shard placement "
-        "(ROADMAP.md queue 1, item 13b)",
-    ("parallel.sharding", "shard_leading"):
-        "a sharded table's stack placement: multi-GPU shard placement "
-        "(ROADMAP.md queue 1, item 13b)",
     ("launch.roofline", "collective_bytes"):
         "parses XLA's post-SPMD HLO text; the port has no HLO: the "
         "dry-run records each collective's kind, mesh axis and result "

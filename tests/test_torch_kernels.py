@@ -796,3 +796,83 @@ def test_cuda_paper_eval_edge_shapes_equal_plain(cuda, profile):
     with pytest.raises(ValueError, match="built for n"):
         TCK.eval_coeff0_paper(a0[:3, :, :n // 2], a1[:3, :, :n // 2],
                               cek[:, :n // 2], qs, p.scale)
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_launch_on_operands_card():
+    """With card 0 current, every kernel wrapper called on operands on
+    card j >= 1 launches there (its C entry runs with card j current and
+    on card j's stream) and returns there, equal to its plain version on
+    the CPU (tolerance 0): `ntt_br` both ways, `negacyclic_mul`,
+    `negacyclic_mul_ntt` on a `KeySet.replica`'s key transform (itself
+    made by the forward `ntt_br` on card j), the paper Eval's wide and
+    cluster-split forms and the gadget Eval; card 0 is current again
+    after each call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs two or more CUDA devices ({count} visible): "
+                    "the wrappers launch on a card that is not current")
+    home = torch.device("cuda", 0)
+    gks = torch_keygen(torch_make_params("test-bfv", mode="gadget"), 3,
+                       device=home)
+    pks = torch_keygen(torch_make_params("test-bfv", mode="paper"), 4,
+                       device=home, paper_ecek_weight=0)
+    p = gks.params
+    K, n = p.num_towers, p.n
+    cpu_ring = TR.make_ring(p, "cpu")
+    qs = torch.tensor(p.qs, dtype=torch.int64)
+    gen = torch.Generator().manual_seed(20)
+
+    def rand(*shape):
+        return torch.randint(0, 1 << 62, shape + (K, n),
+                             generator=gen) % qs[:, None]
+    with torch.cuda.device(0):
+        for j in range(1, count):
+            dev = torch.device("cuda", j)
+            _build.reset_launch_counts()
+            g, w = gks.replica(dev), pks.replica(dev)
+            a, b = rand(64), rand(64)
+            key_br, key_pairs = g.key_br("pk1")
+            cases = {
+                "ntt_br_fwd": (TNK.ntt_br(a.to(dev), g.ring, fwd=True),
+                               TNK.ntt_br_plain(a, cpu_ring, fwd=True)),
+                "ntt_br_inv": (TNK.ntt_br(a.to(dev), g.ring, fwd=False),
+                               TNK.ntt_br_plain(a, cpu_ring, fwd=False)),
+                "negacyclic_mul": (
+                    TNK.negacyclic_mul(a.to(dev), b.to(dev), g.ring),
+                    TNK.negacyclic_mul_plain(a, b, cpu_ring)),
+                "negacyclic_mul_ntt": (
+                    TNK.negacyclic_mul_ntt(a.to(dev), key_br, g.ring,
+                                           key_pairs),
+                    TNK.negacyclic_mul_ntt_plain(a, key_br.cpu(),
+                                                 cpu_ring)),
+                "key_br": (key_br, gks.key_br("pk1")[0].cpu())}
+            assert torch.cuda.current_device() == 0
+            pargs = (w.ring.q_arr[:, 0], w.params.scale)
+            for lanes in (TCK.paper_wide_lanes(), 5):   # wide, split
+                x0, x1 = rand(lanes), rand(lanes)
+                cases[f"paper_{lanes}"] = (
+                    TCK.eval_coeff0_paper(x0.to(dev), x1.to(dev),
+                                          w.cek_rev, *pargs),
+                    TCK.eval_coeff0_paper_plain(x0, x1, w.cek_rev.cpu(),
+                                                qs, w.params.scale))
+                assert torch.cuda.current_device() == 0
+            u0, u1, b0, b1 = rand(1, 256), rand(1, 256), rand(2), rand(2)
+            sel = np.zeros(2, np.int64)
+            on = [x.to(dev) for x in (u0, u1, b0, b1)]
+            cases["gadget"] = (
+                TCK.eval_coeff0_gadget(on[0], on[1], 0, 256, sel, on[2],
+                                       on[3], *_gadget_args(g),
+                                       cek_bytes=g.cek_rev_bytes),
+                TCK.eval_coeff0_gadget_plain(
+                    u0, u1, 0, 256, sel, b0, b1, gks.cek_rev.cpu(), qs,
+                    p.scale, p.profile.gadget_log_base))
+            assert torch.cuda.current_device() == 0
+            torch.cuda.synchronize(dev)
+            for name, (got, want) in cases.items():
+                assert got.device == dev, name
+                assert torch.equal(got.cpu(), want), (dev, name)
+            assert all(v > 0 for v in _build.LAUNCHES.values()), (
+                dev, dict(_build.LAUNCHES))

@@ -33,6 +33,7 @@ from repro_torch.db import executor as TX
 from repro_torch.db import plan as TP
 from repro_torch.db.shard import executor as TSX
 from repro_torch.db.shard.table import partition_offsets
+from repro_torch.kernels import ops as TKO
 
 from test_torch_core import ct_to_torch, n_
 from test_torch_join import (Scheme, Side, _same_ct, _same_join,
@@ -466,7 +467,8 @@ def test_sharded_join_matches_reference(S):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["gadget", "paper"])
 def test_cuda_sharded_scan_tile_equals_plain(mode):
-    """A tile of the `[S, U, W]` scan through the kernels (per shard, per
+    """A tile of the `[S, U, W]` scan through the kernels
+    (`kernels.ops.slab_scan_values` over the one slab: per shard, per
     unique column, addressed by offset; paper mode also once on the
     bounds per shard) equals the CPU's plain tile."""
     from repro_torch.kernels import _build
@@ -482,6 +484,7 @@ def test_cuda_sharded_scan_tile_equals_plain(mode):
     uniq, sel = TX.dedup_atom_columns(st, [
         TP.Atom("v", ">=", None), TP.Atom("s", "<=", None),
         TP.Atom("v", "<=", None)], st.scan_stack)
+    uniq = Ciphertext(uniq.c0.full(), uniq.c1.full())
     b = sc.enc(7)[1]
     bounds = Ciphertext(torch.stack([b.c0] * 3)[:, None],
                         torch.stack([b.c1] * 3)[:, None])
@@ -493,10 +496,60 @@ def test_cuda_sharded_scan_tile_equals_plain(mode):
 
     def on(ct):
         return Ciphertext(ct.c0.to(cuda), ct.c1.to(cuda))
-    want = TSX.sharded_tile_values(sc.ks, uniq, sel, bounds, 2, 5)
+    want = TKO.slab_scan_values(sc.ks, uniq, sel, bounds, 2, 5)
     kernel = f"eval_coeff0_{mode}"
     before = _build.LAUNCHES[kernel]
-    got = TSX.sharded_tile_values(ks_gpu, on(uniq), sel, on(bounds), 2, 5)
+    got = TKO.slab_scan_values(ks_gpu, on(uniq), sel, on(bounds), 2, 5)
     per_shard = 2 if mode == "gadget" else 3        # U = 2 columns (+ bounds)
     assert _build.LAUNCHES[kernel] == before + 3 * per_shard
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["gadget", "paper"])
+def test_cuda_placed_scan_tile_equals_plain(mode):
+    """A table placed on four mesh positions over the cards (a card may
+    fill several): every fused-scan tile runs per slab on its card
+    (`kernels.ops.shard_eval_values`: one launch per shard per unique
+    column, paper mode one more on the bounds), and the raw values equal
+    the CPU's unplaced plain scan of the same rows and pads."""
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    cards = torch.cuda.device_count()
+    positions = [torch.device("cuda", j % cards) for j in range(4)]
+    home = positions[0]
+    sc = Scheme("test-bfv", mode)
+    rng = np.random.default_rng(6)
+    data = {"v": rng.integers(0, 40, N_ROWS), "s": rng.integers(0, 40, N_ROWS)}
+    side = Side(sc.ref_ks, "t", data, 4)
+    pads = _ref_zeros(sc.ref_ks, 0x5AAD)
+
+    def on(ct):
+        return Ciphertext(ct.c0.to(home), ct.c1.to(home))
+    ks_gpu = type(sc.ks).from_numpy(
+        sc.ks.params, sk=n_(sc.ks.sk), pk0=n_(sc.ks.pk0), pk1=n_(sc.ks.pk1),
+        cek=None if sc.ks.cek is None else n_(sc.ks.cek),
+        cek_gadget=(None if sc.ks.cek_gadget is None
+                    else n_(sc.ks.cek_gadget)), device=home)
+    flat = TDB.ShardedTable.from_table(
+        sc.ks, side.t, spec=TDB.ShardSpec.create(4, use_mesh=False),
+        pad_rows=pads)
+    card = TDB.Table.from_ciphertexts(
+        "t", {c: on(ct) for c, ct in side.t.columns.items()}, side.t.n_rows)
+    st = TDB.ShardedTable.from_table(
+        ks_gpu, card, spec=TDB.ShardSpec.create(4, devices=positions),
+        pad_rows=lambda _ks, c, count, salt: on(pads(_ks, c, count, salt)))
+    assert st.spec.shard_map_ok and st.columns["v"].c0.num_slabs == 4
+    b = sc.enc(7)[1]
+    atoms = [TP.Atom("v", ">=", b), TP.Atom("s", "<=", b)]
+    want = TSX.sharded_fused_eval(sc.ks, flat, atoms, lane_budget=32)
+    kernel = f"eval_coeff0_{mode}"
+    before = _build.LAUNCHES[kernel]
+    got = TSX.sharded_fused_eval(
+        ks_gpu, st, [TP.Atom(a.column, a.op, on(a.value)) for a in atoms],
+        lane_budget=32)
+    tiles = -(-st.shard_scan_width // (32 // (4 * len(atoms))))
+    per_tile = 4 * (2 if mode == "gadget" else 3)     # 2 columns (+ bounds)
+    assert _build.LAUNCHES[kernel] == before + tiles * per_tile
+    assert np.array_equal(got, want)
