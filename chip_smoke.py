@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --shard-phases   # the build, 9, 10 and 10b only
+    python3 chip_smoke.py --ckks-phases    # the build and 11b only
 
 Phases, each printing one JSON line:
 
@@ -119,6 +120,26 @@ Phases, each printing one JSON line:
                them at, on rows of each tenant's own column, launch
                counts reconciled; each paper shape split into device,
                host and floor times beside its bound.
+ 11b. ckks   — after the loop's tables are freed, float columns through
+               the engine at paper-ckks in gadget mode (n = 16,384: a row
+               is 512 KiB), the traffic of benchmarks/fig2_ckks.py and
+               benchmarks/db_engine.py::run_ckks on values put on a 0.25
+               lattice in [0, 1000]: fig2's micro-operations over 100
+               values (keygen, Enc Basic/FAE, Cmp Basic/FAE, each sign
+               checked); table (a), the bitcoin stand-in's 1,085 rows,
+               and (b), hg38's first 16,384 rows, each with v and a
+               lattice aux column; SortedIndex.build on each v; an
+               ε-band Eq, 4 Ranges with off-lattice bounds (linear and
+               indexed) and And(Range, ε-band Eq) + TopK 5 on both; a
+               QueryServer batch of 8 ε-band Eqs and Ranges over (b)'s
+               index, each with its own ε; the ε-band sort-merge join of
+               (b).v against (a).v with its verify pass; then on (b) 819
+               inserts, 8 deletes, ε-band Eq and Range over base ∪ delta
+               (scan and indexed), compaction, the reads again.  Every
+               answer against numpy on the plaintext; the gadget Eval,
+               both multiplies and ntt_br against their plain versions
+               at every shape the phase launched them at, launches
+               reconciled; walls, queries/s, inserts/s, peak memory.
  12. lm      — smollm-360m at full width in bfloat16 (seeded weights):
                8 requests in batches of 4, prompt 32, 16 greedy tokens;
                one batch's decode steps under torch.profiler (device
@@ -201,11 +222,12 @@ Phases, each printing one JSON line:
  17. card    — the card's name and power limit (nvidia-smi), then one
                {"kernels": [...]} line with every kernel's numbers (the
                n = 16,384 shapes as rows named with the profile, the
-               HADES cells' largest shape as "eval_coeff0_gadget@hades-cmp").
+               float path's as "...@paper-ckks/db", the HADES cells'
+               largest shape as "eval_coeff0_gadget@hades-cmp").
 
 Launch counts are zeroed just before each path (serve, keymul, write,
-shard, join, each placement mesh, loop, the lm bridge, train, the HADES
-cells, the examples)
+shard, join, each placement mesh, loop, ckks, the lm bridge, train, the
+HADES cells, the examples)
 and read just after; each path's kernels must have launched.  The LM families and the
 training path launch none of the kernels: their modules are plain
 PyTorch, as the reference's are plain JAX.  The last
@@ -261,6 +283,22 @@ LM_DECODE_TOL = 2e-2        # tests/test_serve.py's decode vs forward
 LM_PROFILE = "paper-ckks"
 LM_CANDIDATES = 4096
 LM_TOPK = 8
+# float columns through the engine (benchmarks/db_engine.py::run_ckks and
+# benchmarks/fig2_ckks.py at the paper's CKKS profile, gadget mode):
+# values on the CKKS_GRID lattice in [0, 1000] (exact plaintext answers,
+# far above the profile's ~2^-7 equality tolerance); table (a) is the
+# bitcoin stand-in's 1,085 rows, table (b) hg38's first CKKS_ROWS rows
+# (8 GiB a column: the bitonic build holds ~4 columns, so the full
+# 34,423 rows, 32 GiB a column once padded, would not fit); CKKS_MICRO
+# values for fig2's micro-operations, CKKS_INSERT rows inserted into (b)
+# (5 %, the write benchmark's share) and CKKS_DELETE deleted
+CKKS_PROFILE = "paper-ckks"
+CKKS_GRID = 0.25
+CKKS_ROWS = 16384
+CKKS_MICRO = 100
+CKKS_RANGES = 4
+CKKS_INSERT = 819
+CKKS_DELETE = 8
 # the LM families beyond dense GQA, each at its published config, with
 # the smollm phase's traffic: MLA, MoE, RG-LRU with local attention,
 # xLSTM, the whisper encoder with cross attention, llava's patch prefix
@@ -355,6 +393,9 @@ LM_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt", "negacyclic_mul",
 # the examples run gadget and paper keygen, encryption and both Evals
 EXAMPLE_KERNELS = ("eval_coeff0_gadget", "eval_coeff0_paper",
                    "negacyclic_mul_ntt", "negacyclic_mul", "ntt_br_fwd")
+# the float path runs gadget keygen, encryption and the gadget Eval
+CKKS_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt", "negacyclic_mul",
+                "ntt_br_fwd")
 
 
 def emit(obj) -> None:
@@ -2690,6 +2731,363 @@ def check_mul_shapes(ks, shapes: dict, seed: int, rate) -> dict:
     return {"tolerance": 0, "equal": eq, "shapes": out}
 
 
+def _float_dataset(name: str, rows: int = 0) -> np.ndarray:
+    """A dataset's CKKS floats on the CKKS_GRID lattice in [0, 1000]
+    (benchmarks/db_engine.py::_float_dataset's preprocessing): the
+    plaintext answers stay exact.  `rows` > 0 keeps the first rows."""
+    from repro_torch.data import load_dataset
+    raw = load_dataset(name, scheme="ckks")
+    if rows:
+        raw = raw[:rows]
+    return np.round(raw / raw.max() * 4000.0) * CKKS_GRID
+
+
+def _lattice(rng, n: int) -> np.ndarray:
+    """run_ckks's aux column: uniform on [0, 50], on the lattice."""
+    return np.round(rng.uniform(0, 50, n) / CKKS_GRID) * CKKS_GRID
+
+
+def check_ntt_calls(calls: dict, launches: dict, rate) -> dict:
+    """`ntt_br` against its plain version at every distinct call
+    `record_calls(("ntt_br",))` recorded (`check_calls`), each timed by
+    CUDA events beside its bound."""
+    from repro_torch.kernels import ntt as NK
+    checked = check_calls(calls, {k: launches[k] for k in
+                                  ("ntt_br_fwd", "ntt_br_inv")})
+    timed = []
+    for n_calls, counter, _, arg in calls.values():
+        x, ring, fwd = arg["x"], arg["ring"], arg["fwd"]
+        K, n = x.shape[-2:]
+        timed.append({
+            "kernel": counter, "shape": list(x.shape), "calls": n_calls,
+            "ms": time_cuda(lambda: NK.ntt_br(x, ring, fwd=fwd), 5),
+            "plain_ms": time_cuda(lambda: NK.ntt_br_plain(x, ring, fwd=fwd),
+                                  1),
+            **ntt_bound(int(np.prod(x.shape[:-2])), K, n, rate)})
+    return {**checked, "timed": timed}
+
+
+def phase_ckks(dev, rate) -> dict:
+    """Float columns through the engine at CKKS_PROFILE in gadget mode
+    (`benchmarks/fig2_ckks.py` and `db_engine.py::run_ckks`'s traffic),
+    every answer against numpy on the plaintext:
+
+      1. fig2's micro-operations over CKKS_MICRO values: keygen, Enc
+         Basic, Enc FAE, Cmp Basic and Cmp FAE (each sign checked);
+      2. tables (a) bitcoin (1,085 rows) and (b) hg38's first CKKS_ROWS
+         rows, each with `v` and run_ckks's lattice `aux`;
+      3. `SortedIndex.build` on each `v` (sorted order checked);
+      4. an ε-band Eq (ε = 2.5 grid steps, off the lattice), linear and
+         indexed; 5. CKKS_RANGES Ranges with off-lattice bounds, linear
+         and indexed; 6. And(Range(v), Eq(aux, ε = 1.5 steps)) + TopK(v,
+         5); 4-6 on both tables;
+      7. a QueryServer batch of 8 over (b)'s index: ε-band Eqs and
+         Ranges, each with its own ε (so its own τ), each equal to its
+         own `execute` and the plaintext;
+      9. the ε-band sort-merge join of (b).v against (a).v (ε = 1.5
+         steps, both indexed, the verify pass), pairs against the
+         plaintext's {(i, j): |l_i - r_j| <= ε};
+      8. then (a) is freed and (b) written: CKKS_INSERT inserts,
+         CKKS_DELETE deletes, an ε-band Eq and a Range over base ∪
+         delta (scan and indexed), compaction, the reads again.
+
+    The join runs before the writes: after compaction (b) holds
+    CKKS_ROWS + CKKS_INSERT rows, whose merge block (twice 32,768 rows,
+    32 GiB, and the stage temporaries) would not fit beside the table.
+    Then the gadget Eval, both multiplies and `ntt_br` against their
+    plain versions at every shape the phase launched them at (tolerance
+    0), the calls reconciled with the launch counts; walls, queries/s,
+    inserts/s and the peak memory of each part."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import db, obs
+    from repro_torch.core import compare as C
+    from repro_torch.core import encrypt as E
+    from repro_torch.core.ckks import eps_to_tau, equality_tolerance
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.params import make_params
+    from repro_torch.kernels import _build
+
+    G = CKKS_GRID
+    hp = make_params(CKKS_PROFILE, mode="gadget")
+    vals = {"a": _float_dataset("bitcoin"),
+            "b": _float_dataset("hg38", CKKS_ROWS)}
+    rng = np.random.default_rng(SEED)
+    aux = {k: _lattice(rng, len(v)) for k, v in vals.items()}
+    seeds = iter(range(7000, 8000))
+    walls, peaks, live, ok = {}, {}, {}, {}
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def peak(name):
+        """The peak since the last call, and what is still allocated."""
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        live[name] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    def fenc(v):
+        return E.encrypt(ks, float(v), next(seeds))
+
+    def same(res, want):
+        return bool(np.array_equal(res.mask, want))
+
+    def draw_range(v):
+        lo, hi = np.sort(rng.choice(v, 2, replace=False))
+        return float(lo) - G / 2, float(hi) + G / 2
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    gshapes, gstop = record_gadget_shapes()
+    mshapes, mstop = record_mul_shapes()
+    ncalls, nstop = record_calls(("ntt_br",))
+    try:
+        # ---- 1. fig2's micro-operations ---------------------------------
+        t0 = time.perf_counter()
+        ks = keygen(hp, SEED + 60, device=dev)
+        walls["keygen_s"] = sync_s(t0)
+        m = np.random.default_rng(8).uniform(0, 1e6, CKKS_MICRO)
+        mt = torch.as_tensor(m, device=dev)
+        t0 = time.perf_counter()
+        ct_a = E.encrypt(ks, mt, SEED + 61)
+        walls["enc_basic_s"] = sync_s(t0)
+        ct_b = E.encrypt(ks, torch.roll(mt, 1), SEED + 62)
+        t0 = time.perf_counter()
+        fa = E.encrypt_fae(ks, mt, SEED + 63)
+        walls["enc_fae_s"] = sync_s(t0)
+        fb = E.encrypt_fae(ks, torch.roll(mt, 1), SEED + 64)
+        t0 = time.perf_counter()
+        cmp_b = C.compare(ks, ct_a, ct_b).cpu().numpy()
+        walls["cmp_basic_s"] = sync_s(t0)
+        t0 = time.perf_counter()
+        cmp_f = C.compare_fae(ks, fa, fb).cpu().numpy()
+        walls["cmp_fae_s"] = sync_s(t0)
+        ok["micro"] = bool(np.array_equal(cmp_b, np.sign(m - np.roll(m, 1)))
+                           and np.array_equal(cmp_f, m > np.roll(m, 1)))
+        del ct_a, ct_b, fa, fb, mt
+        peak("micro")
+
+        # ---- 2-3. tables and their indexes ------------------------------
+        tables, idx = {}, {}
+        for k in ("a", "b"):
+            t0 = time.perf_counter()
+            tables[k] = db.Table.from_arrays(
+                ks, f"ckks_{k}", {"v": vals[k], "aux": aux[k]},
+                SEED + 65 + (k == "b"))
+            walls[f"encrypt_{k}_s"] = sync_s(t0)
+        for k in ("a", "b"):
+            with (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])
+                  if k == "b" else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                idx[k] = db.SortedIndex.build(ks, tables[k], "v")
+                walls[f"index_{k}_s"] = sync_s(t0)
+            ok[f"index_{k}"] = bool(np.array_equal(
+                vals[k][idx[k].perm], np.sort(vals[k])))
+        build_dev = _device_summary(prof, walls["index_b_s"])
+        del prof
+        peak("index_build")
+
+        # ---- 4-6. ε-band Eq, Ranges, And + TopK on both tables ----------
+        for k in ("a", "b"):
+            v, t, ix = vals[k], tables[k], {"v": idx[k]}
+            n = len(v)
+            target, eps = float(v[n // 3]), 2 * G + G / 2
+            q = db.Eq("v", fenc(target), eps=eps)
+            want = np.abs(v - target) <= eps
+            t0 = time.perf_counter()
+            lin = db.execute(ks, t, q)
+            walls[f"eq_linear_{k}_s"] = sync_s(t0)
+            t0 = time.perf_counter()
+            ind = db.execute(ks, t, q, indexes=ix)
+            walls[f"eq_indexed_{k}_s"] = sync_s(t0)
+            ok[f"eq_{k}"] = same(lin, want) and same(ind, want)
+            ranges = [draw_range(v) for _ in range(CKKS_RANGES)]
+            plans = [db.Range("v", fenc(lo), fenc(hi)) for lo, hi in ranges]
+            for name, use in (("linear", None), ("indexed", ix)):
+                t0 = time.perf_counter()
+                res = [db.execute(ks, t, q, indexes=use) for q in plans]
+                walls[f"range_{name}_{k}_s"] = sync_s(t0) / CKKS_RANGES
+                ok[f"range_{name}_{k}"] = all(
+                    same(r, (v >= lo) & (v <= hi))
+                    for r, (lo, hi) in zip(res, ranges))
+            lo = float(np.percentile(v, 30)) - G / 2
+            hi = float(np.percentile(v, 70)) + G / 2
+            eq_v, band = float(aux[k][n // 2]), G + G / 2
+            query = db.Query(where=db.And(
+                db.Range("v", fenc(lo), fenc(hi)),
+                db.Eq("aux", fenc(eq_v), eps=band)), top_k=db.TopK("v", 5))
+            t0 = time.perf_counter()
+            res = db.execute(ks, t, query)
+            walls[f"and_topk_{k}_s"] = sync_s(t0)
+            want = (v >= lo) & (v <= hi) & (np.abs(aux[k] - eq_v) <= band)
+            ok[f"and_topk_{k}"] = same(res, want) and (
+                v[res.row_ids].tolist()
+                == sorted(v[want].tolist(), reverse=True)[:5])
+        peak("queries")
+
+        # ---- 7. a batch of 8 over (b)'s index, each with its own τ ------
+        v = vals["b"]
+        reqs = []
+        for e in (G + G / 2, 2 * G + G / 2, 3 * G + G / 2, 4 * G + G / 2):
+            x = float(rng.choice(v))
+            reqs.append((db.Eq("v", fenc(x), eps=e), np.abs(v - x) <= e))
+        for e in (None, G, 2 * G, 3 * G):
+            lo, hi = draw_range(v)
+            w = e or 0.0
+            reqs.append((db.Range("v", fenc(lo), fenc(hi), eps=e),
+                         (v > lo - w) & (v < hi + w)))
+        taus = sorted({hp.tau if q.eps is None else eps_to_tau(hp, q.eps)
+                       for q, _ in reqs})
+        server = db.QueryServer(ks, tables["b"], indexes={"v": idx["b"]},
+                                batch=len(reqs))
+        qids = [server.submit(q) for q, _ in reqs]
+        t0 = time.perf_counter()
+        got = server.run()
+        walls["batch_s"] = sync_s(t0)
+        own = [db.execute(ks, tables["b"], q, indexes={"v": idx["b"]})
+               for q, _ in reqs]
+        ok["batch"] = all(
+            same(got[i], want) and np.array_equal(got[i].row_ids, o.row_ids)
+            for i, (_, want), o in zip(qids, reqs, own))
+        bs = server.batch_log[0]
+        batch = {"queries": bs.queries, "eval_calls": bs.eval_calls,
+                 "index_compares": bs.index_compares}
+
+        # ---- 9. the ε-band sort-merge join of (b).v against (a).v -------
+        band = G + G / 2
+        with obs.tracing() as tracer:
+            t0 = time.perf_counter()
+            jres = db.execute_join(
+                ks, tables["b"], tables["a"],
+                db.Join(None, None, on="v", eps=band), strategy="sort_merge",
+                left_indexes={"v": idx["b"]}, right_indexes={"v": idx["a"]})
+            walls["join_s"] = sync_s(t0)
+        want_pairs = np.argwhere(
+            np.abs(vals["b"][:, None] - vals["a"][None, :]) <= band)
+        ok["join"] = bool(np.array_equal(jres.pairs, want_pairs)
+                          and jres.stats.verify_compares > 0)
+        js = jres.stats
+        join = {"pairs": len(jres), "eval_calls": js.eval_calls,
+                "merge_compares": js.merge_compares,
+                "adjacency_compares": js.adjacency_compares,
+                "verify_compares": js.verify_compares,
+                "span_ms": _span_ms(tracer)}
+        del jres
+        peak("join")
+        # the rows the kernel checks draw from: 256 of (a)'s rows
+        col = tables["a"].columns["v"]
+        source = E.Ciphertext(col.c0[:256].clone(), col.c1[:256].clone())
+        del col
+        del tables["a"], idx["a"], server, got, own
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 8. writes on (b): inserts, deletes, union reads, compact ---
+        tb, ix = tables.pop("b"), {"v": idx.pop("b")}
+        n = len(v)
+        ins = {"v": rng.choice(v, CKKS_INSERT),
+               "aux": _lattice(rng, CKKS_INSERT)}
+        t0 = time.perf_counter()
+        new_ids = tb.insert(ks, ins, SEED + 67)
+        walls["insert_s"] = sync_s(t0)
+        all_v = np.concatenate([v, ins["v"]])
+        alive = np.ones(len(all_v), bool)
+        dead = rng.choice(len(all_v), CKKS_DELETE, replace=False)
+        ok["insert_delete"] = bool(
+            np.array_equal(new_ids, np.arange(n, n + CKKS_INSERT))
+            and tb.delete(dead) == CKKS_DELETE)
+        alive[dead] = False
+        target, eq_eps = float(ins["v"][CKKS_INSERT // 2]), 2 * G + G / 2
+        lo, hi = draw_range(all_v)
+        q_eq = db.Eq("v", fenc(target), eps=eq_eps)
+        q_rg = db.Range("v", fenc(lo), fenc(hi))
+        want_eq = (np.abs(all_v - target) <= eq_eps) & alive
+        want_rg = (all_v >= lo) & (all_v <= hi) & alive
+
+        def union_reads(tag):
+            for name, use in (("scan", None), ("indexed", ix)):
+                t0 = time.perf_counter()
+                r_eq = db.execute(ks, tb, q_eq, indexes=use)
+                r_rg = db.execute(ks, tb, q_rg, indexes=use)
+                walls[f"{tag}_{name}_s"] = sync_s(t0) / 2
+                ok[f"{tag}_{name}"] = (same(r_eq, want_eq)
+                                       and same(r_rg, want_rg))
+        union_reads("union")
+        gc.collect()
+        peak("union_reads")
+        t0 = time.perf_counter()
+        cstats = db.compact(ks, tb, ix)
+        walls["compact_s"] = sync_s(t0)
+        peak("compact")
+        ok["compact"] = bool(
+            not tb.has_delta
+            and np.array_equal(all_v[ix["v"].perm], np.sort(all_v))
+            and 0 < cstats.merge_compares < cstats.rebuild_compares)
+        union_reads("post_compact")
+        peak("post_compact")
+        after = {"b_after_compaction": tb.n_rows,
+                 "b_padded_after_compaction": tb.n_padded}
+    finally:
+        gstop()
+        mstop()
+        nstop()
+    launches = dict(_build.LAUNCHES)
+    del tables, idx, tb, ix
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gadget = check_gadget_shapes(ks, source, gshapes, SEED + 68, rate)
+    muls = check_mul_shapes(ks, mshapes, SEED + 69, rate)
+    ntts = check_ntt_calls(ncalls, launches, rate)
+    del source, ncalls
+    torch.cuda.empty_cache()
+    g_calls = sum(s["calls"] * s["launches_per_call"]
+                  for s in gadget["shapes"])
+    m_calls = {k: sum(s["calls"] for s in muls["shapes"] if s["kind"] == k)
+               for k in ("key", "var")}
+    reconciled = (g_calls == launches["eval_coeff0_gadget"]
+                  and m_calls["key"] == launches["negacyclic_mul_ntt"]
+                  and m_calls["var"] == launches["negacyclic_mul"]
+                  and ntts["launches_reconciled"]
+                  and launches["eval_coeff0_paper"] == 0)
+    exact = all(ok.values())
+    out = {
+        "phase": "ckks", "profile": CKKS_PROFILE, "mode": "gadget",
+        "n": hp.n, "towers": hp.num_towers, "grid": G,
+        "tolerance": equality_tolerance(hp), "taus": taus,
+        "max_operand": hp.max_operand,
+        "rows": {"a": len(vals["a"]), "b": len(vals["b"]),
+                 "b_inserted": CKKS_INSERT, "b_deleted": CKKS_DELETE,
+                 **after},
+        "row_bytes": 2 * 8 * hp.num_towers * hp.n,
+        "exact": exact, "checks": ok, "walls": walls,
+        "queries_per_s": len(reqs) / walls["batch_s"],
+        "inserts_per_s": CKKS_INSERT / walls["insert_s"],
+        "batch": batch, "join": join,
+        "compact": {"merge_compares": cstats.merge_compares,
+                    "rebuild_compares": cstats.rebuild_compares,
+                    "rounds": cstats.merge_rounds},
+        "index_build_device": build_dev,
+        "peak_mem_bytes": max(peaks.values()), "peaks": peaks,
+        "live_bytes": live,
+        "launches": launches, "launches_reconciled": reconciled,
+        "gadget_shapes": gadget, "mul_shapes": muls, "ntt_calls": ntts,
+    }
+    emit(out)
+    require(exact, f"a float answer diverged from the plaintext: {ok}")
+    require(gadget["equal"] and muls["equal"] and ntts["equal"],
+            "a kernel != plain at a float-path shape")
+    require(reconciled, f"launches {launches} != the recorded calls")
+    require(all(launches[k] > 0 for k in CKKS_KERNELS),
+            f"a kernel never launched on the float path: {launches}")
+    return out
+
+
 def _serve_and_trace(cfg, params, prompts, dev, frames=None) -> dict:
     """The LM serve path on the card: a warm-up batch, then LM_REQUESTS
     requests in batches of LM_BATCH (the prompts' length each), LM_GEN
@@ -3440,18 +3838,19 @@ RECORDED_WRAPPERS = {
 }
 
 
-def record_calls() -> tuple:
-    """Record every call of the kernel wrappers (RECORDED_WRAPPERS) until
-    `stop()`: calls maps (wrapper, the key of each bound argument) to
-    [calls, launch counter, launches a call, the first call's arguments,
-    each tensor copied before the kernel ran].  Every module reaches a
-    kernel through its module's attribute."""
+def record_calls(names=tuple(RECORDED_WRAPPERS)) -> tuple:
+    """Record every call of the kernel wrappers `names` (of
+    RECORDED_WRAPPERS) until `stop()`: calls maps (wrapper, the key of
+    each bound argument) to [calls, launch counter, launches a call, the
+    first call's arguments, each tensor copied before the kernel ran].
+    Every module reaches a kernel through its module's attribute."""
     import importlib
     import inspect
     import threading
 
     calls, lock, undo = {}, threading.Lock(), []
-    for name, (mod_name, _, launches) in RECORDED_WRAPPERS.items():
+    for name in names:
+        mod_name, _, launches = RECORDED_WRAPPERS[name]
         mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
         inner = getattr(mod, name)
         sig = inspect.signature(inner)
@@ -3833,9 +4232,11 @@ def main() -> int:
     t_start = time.perf_counter()
     if sys.argv[1:] == ["--shard-phases"]:
         return _main_shard(t_start)
+    if sys.argv[1:] == ["--ckks-phases"]:
+        return _main_ckks(t_start)
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (the one "
-              "option is --shard-phases)", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (the options "
+              "are --shard-phases and --ckks-phases)", file=sys.stderr)
         return 2
     dryrun = start_dryrun()
     try:
@@ -3855,15 +4256,18 @@ def _placement_summary(placement: dict) -> dict:
         for r in placement["runs"]}
 
 
-def _print_card_and_device() -> None:
-    """The card's name and power limit (nvidia-smi), then the device
-    record, the last line."""
+def _print_card_and_device(kernels=None) -> None:
+    """The card's name and power limit (nvidia-smi), the {"kernels":
+    [...]} line when given its rows, then the device record, the last
+    line."""
     import torch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    if kernels is not None:
+        emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -3909,6 +4313,68 @@ def _main_shard(t_start: float) -> int:
     return 0
 
 
+def _ckks_summary(ckks: dict) -> dict:
+    """The float path's answers, checks, walls, rates and peak memory."""
+    return {"exact": ckks["exact"],
+            "shapes_equal": ckks["gadget_shapes"]["equal"]
+            and ckks["mul_shapes"]["equal"] and ckks["ntt_calls"]["equal"],
+            **{k: ckks[k] for k in ("launches_reconciled", "walls",
+                                    "queries_per_s", "inserts_per_s",
+                                    "peak_mem_bytes", "peaks")}}
+
+
+def _ckks_rows(ckks: dict) -> list:
+    """The float path's kernel rows for the card line: each kernel at its
+    most-called shape whose plain version was timed, named with the
+    profile and the engine ("@paper-ckks/db")."""
+    src = "src/repro_torch/kernels/csrc"
+
+    def row(name, source, replaces, shapes):
+        top = max((s for s in shapes if "plain_ms" in s),
+                  key=lambda s: s["calls"])
+        return {"name": f"{name}@{CKKS_PROFILE}/db", "route": "cuda",
+                "source": f"{src}/{source}", "replaces": replaces,
+                "launches": ckks["launches"][name],
+                "max_abs_err": max(s.get("max_abs_err", 0) for s in shapes),
+                "ms": top["ms"], "plain_ms": top["plain_ms"],
+                "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                "library_ms": None}
+    muls = ckks["mul_shapes"]["shapes"]
+    ntt = ckks["ntt_calls"]
+    ntt_err = max((g["max_abs_err"] for g in ntt["by_shape"]), default=0)
+    return [
+        row("eval_coeff0_gadget", "cmp_eval.cu",
+            "src/repro/kernels/cmp_eval.py:48",
+            ckks["gadget_shapes"]["shapes"]),
+        row("negacyclic_mul_ntt", "ntt.cu", "src/repro/kernels/ntt.py:81",
+            [s for s in muls if s["kind"] == "key"]),
+        row("negacyclic_mul", "ntt.cu", "src/repro/kernels/ntt.py:81",
+            [s for s in muls if s["kind"] == "var"]),
+        {**row("ntt_br_fwd", "ntt.cu", "src/repro/kernels/ntt.py:68",
+               [t for t in ntt["timed"] if t["kernel"] == "ntt_br_fwd"]),
+         "max_abs_err": ntt_err},
+    ]
+
+
+def _main_ckks(t_start: float) -> int:
+    """`python3 chip_smoke.py --ckks-phases`: the build, then the float
+    path (phase 11b) alone.  Ends with the card line, the float path's
+    kernel rows and the device record."""
+    import torch
+    dev = torch.device("cuda", 0)
+    print(json.dumps({"phase": "start", "mode": "ckks-phases",
+                      "torch": torch.__version__, "cuda": torch.version.cuda,
+                      "python": sys.version.split()[0]}), flush=True)
+    phase_build()
+    rate = int_mac_rate()
+    ckks = phase_ckks(dev, rate)
+    emit({"phase": "done", "mode": "ckks-phases",
+          "seconds": time.perf_counter() - t_start,
+          "ckks": _ckks_summary(ckks)})
+    _print_card_and_device(_ckks_rows(ckks))
+    return 0
+
+
 def _main(t_start: float, dryrun: list) -> int:
     import torch
     dev = torch.device("cuda", 0)
@@ -3943,6 +4409,9 @@ def _main(t_start: float, dryrun: list) -> int:
     loop = phase_loop(dev, rate)
     gc.collect()
     torch.cuda.empty_cache()
+    ckks = phase_ckks(dev, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
     lm = phase_lm(dev, rate)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3974,6 +4443,7 @@ def _main(t_start: float, dryrun: list) -> int:
               "steady_qps", "shed_rate", "jit_retraces_delta",
               "threaded_exact", "overload", "index_build_s",
               "peak_mem_bytes", "launches_reconciled")},
+          "ckks": _ckks_summary(ckks),
           "lm": {"tokens_per_s": lm["tokens_per_s"],
                  "prefill_s": lm["prefill_s"], "decode_s": lm["decode_s"],
                  "f32_rel_err": lm["f32_card_vs_cpu"]["rel_err"],
@@ -4024,11 +4494,6 @@ def _main(t_start: float, dryrun: list) -> int:
                        **{k: examples["kernels_vs_plain"][k] for k in (
                            "equal", "launches_reconciled")}}})
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
     src = "src/repro_torch/kernels/csrc"
     ev, mul = kern["eval"], kern["mul"]
     tile = ev["served_tiles"][0]          # the first batch's tile shape
@@ -4051,7 +4516,7 @@ def _main(t_start: float, dryrun: list) -> int:
         return row(f"{name}@{LM_PROFILE}", source, replaces, lm, name,
                    max(s["max_abs_err"] for s in shapes), top)
     hades = parallel["hades"]
-    emit({"kernels": [
+    _print_card_and_device([
         {**row("eval_coeff0_gadget@hades-cmp", "cmp_eval.cu",
                "src/repro/kernels/cmp_eval.py:48", hades,
                "eval_coeff0_gadget",
@@ -4078,10 +4543,8 @@ def _main(t_start: float, dryrun: list) -> int:
                  "src/repro/kernels/ntt.py:81", lm["mul_shapes"], "key"),
         ckks_row("negacyclic_mul", "ntt.cu", "src/repro/kernels/ntt.py:81",
                  lm["mul_shapes"], "var"),
-    ]})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+        *_ckks_rows(ckks),
+    ])
     return 0
 
 

@@ -23,8 +23,19 @@ from repro_torch.core.keys import KeySet
 from repro_torch.core.params import HadesParams
 
 # rows per encryption chunk when the samples are drawn here: u, e0, e1
-# and the two products of one chunk are ~5 x 537 MB at paper-bfv
+# and the two products of one chunk are ~5 x 537 MB at paper-bfv; a
+# larger ring keeps a chunk's bytes (`enc_chunk_rows`: 2,048 rows at
+# paper-ckks, n = 16,384, where 8,192 rows held ~16 GiB of temporaries)
 ENC_CHUNK_ROWS = 8192
+ENC_CHUNK_ELEMS = ENC_CHUNK_ROWS * 2 * 4096
+
+
+def enc_chunk_rows(params: HadesParams) -> int:
+    """Rows per encryption (and decryption) chunk under `params`:
+    ENC_CHUNK_ROWS, or fewer where [rows, K, n] would pass
+    ENC_CHUNK_ELEMS."""
+    return max(1, min(ENC_CHUNK_ROWS,
+                      ENC_CHUNK_ELEMS // (params.num_towers * params.n)))
 
 
 class Ciphertext(NamedTuple):
@@ -86,8 +97,9 @@ def _encrypt_payload(ks: KeySet, payload: torch.Tensor, seed, *,
     c0 = torch.empty((flat.shape[0], K, n), dtype=torch.int64,
                      device=ks.device)
     c1 = torch.empty_like(c0)
-    for lo in range(0, flat.shape[0], ENC_CHUNK_ROWS):
-        p = flat[lo:lo + ENC_CHUNK_ROWS]
+    step = enc_chunk_rows(params)
+    for lo in range(0, flat.shape[0], step):
+        p = flat[lo:lo + step]
         shape = (p.shape[0],)
         u = sampling.ternary_poly(params, gen, shape)
         e0 = sampling.noise_poly(params, gen, shape)

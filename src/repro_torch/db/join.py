@@ -20,8 +20,12 @@ raw-eval + host-side-threshold design of the filter stage, so ε-band
     (`shard.merge.merge_sorted_runs`, every stage one batched Eval),
     then ONE adjacency Eval over consecutive merged rows splits the run
     into equal-key classes; cross-side pairs within a class are the
-    candidates.  Band (ε / CKKS) joins verify the candidates with one
-    batched per-pair Eval (band equality is not transitive).
+    candidates.  Band (ε / CKKS) joins verify the candidates (band
+    equality is not transitive): a class's candidates are all its
+    (left, right) member pairs, so each class runs as one pair grid of
+    its left rows against its right rows, the same values the
+    reference's one batched per-pair Eval gives, without gathering two
+    ciphertexts per candidate (a chained band class makes millions).
 
 `strategy="auto"` picks sort-merge when both sides carry an index on
 their join-key column, else nested-loop.  Handed a `ShardedTable` on
@@ -202,6 +206,20 @@ def pairs_from_grid(vals: np.ndarray, tau: int, left_mask: np.ndarray,
 # sort-merge: run merge + adjacency classes (+ ε verification)
 # ---------------------------------------------------------------------------
 
+def _class_values(ks: KeySet, left: Ciphertext,
+                  right: Ciphertext) -> np.ndarray:
+    """Raw values [L, R] of one sort-merge class's left rows against its
+    right rows, on the host: `kernels.ops.PairGrid` tiles of T left rows
+    (T·R within the pair budget), each value that of the pair's own
+    Eval, bit for bit.  Each row is read once a tile, where a batched
+    per-pair Eval gathers two ciphertexts per pair."""
+    grid = KO.PairGrid(ks, left, right)
+    T = _grid_tile(_resolve_block_pairs(None), grid.n_left, grid.n_right)
+    return np.concatenate([
+        grid.tile(lo, min(T, grid.n_left - lo)).cpu().numpy()
+        for lo in range(0, grid.n_left, T)])
+
+
 def merge_runs_to_pairs(ks: KeySet, runs: List[Tuple[Ciphertext, np.ndarray]],
                         n_left: int, tau: int, *, verify: bool,
                         gather_left: Callable[[np.ndarray], Ciphertext],
@@ -215,7 +233,10 @@ def merge_runs_to_pairs(ks: KeySet, runs: List[Tuple[Ciphertext, np.ndarray]],
     to one power-of-two block and merge through `merge_sorted_runs`, then
     ONE adjacency Eval splits the merged run into equal-key classes under
     τ; cross-side pairs inside a class are candidates, masks filter them,
-    and `verify` re-checks each survivor with one batched per-pair Eval."""
+    and `verify` re-checks each survivor: per class, one pair grid of
+    its left rows against its right rows (`_class_values`).  `stats`
+    and obs count the verification as the reference's one batched Eval
+    over the candidates padded to a power of two."""
     from repro_torch.db.shard import merge as M
     cmp = X.fae_comparator(ks)
     block = C.next_pow2(max(int(ids.shape[0]) for _, ids in runs))
@@ -253,6 +274,7 @@ def merge_runs_to_pairs(ks: KeySet, runs: List[Tuple[Ciphertext, np.ndarray]],
     # equal-key classes: split where adjacency breaks
     breaks = np.nonzero(~eq_adj)[0] + 1
     cand: List[np.ndarray] = []
+    classes: List[Tuple[np.ndarray, np.ndarray]] = []
     for members in np.split(mids, breaks):
         l = members[members < n_left]
         r = members[members >= n_left] - n_left
@@ -261,24 +283,24 @@ def merge_runs_to_pairs(ks: KeySet, runs: List[Tuple[Ciphertext, np.ndarray]],
         if l.size and r.size:
             li, ri = np.meshgrid(l, r, indexing="ij")
             cand.append(np.stack([li.ravel(), ri.ravel()], axis=1))
+            classes.append((l, r))
     if not cand:
         return np.zeros((0, 2), dtype=np.int64)
     pairs = np.concatenate(cand)
     if verify and len(pairs):
-        # band equality: one batched Eval over the candidate pairs, padded
-        # to a power of two as the reference pads them
+        # band equality: every candidate's Eval, class by class in the
+        # candidates' order; counted as the reference's one batched Eval
+        # over the candidates padded to a power of two
         n_cand = len(pairs)
         n_pad = C.next_pow2(n_cand)
-        sel = np.concatenate([np.arange(n_cand),
-                              np.zeros(n_pad - n_cand, np.int64)])
-        with obs.span("join.verify", candidates=n_cand, lanes=n_pad) as sp:
-            lct = gather_left(pairs[sel, 0])
-            rct = gather_right(pairs[sel, 1])
-            obs.jit_launch("join.verify", lct.c0)
+        K, n = ks.params.num_towers, ks.params.n
+        with obs.span("join.verify", candidates=n_cand, lanes=n_pad):
+            obs.jit_launch("join.verify", (n_pad, K, n))
             obs.count("eval.launches")
             obs.count("eval.lanes", n_pad)
-            vv = sp.sync(C.eval_value(ks, lct, rct)).cpu().numpy()[:n_cand]
-            del lct, rct
+            vv = np.concatenate([
+                _class_values(ks, gather_left(l), gather_right(r)).ravel()
+                for l, r in classes])
         stats.verify_compares += n_pad
         stats.eval_calls += 1
         pairs = pairs[np.abs(vv) < tau]

@@ -554,7 +554,7 @@ class ShardedTable:
         rows of the global id space in id order (pending delta rows and
         tombstoned rows included — filter with `alive`)."""
         ct = self.columns[name]
-        step, home = E.ENC_CHUNK_ROWS, self.home
+        step, home = E.enc_chunk_rows(ks.params), self.home
         chunks = []
         for x0, x1 in zip(ct.c0.slabs, ct.c1.slabs):    # each slab's rows
             f0 = x0.reshape((-1,) + tuple(x0.shape[2:]))

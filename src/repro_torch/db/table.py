@@ -6,7 +6,7 @@ with the pad slots excluded from every result.  The pad rows are real
 encryptions of 0.
 
 Ingest encrypts each column in one `encrypt` call, which runs in row
-chunks on the card (`core.encrypt.ENC_CHUNK_ROWS`).  Per-column streams
+chunks on the card (`core.encrypt.enc_chunk_rows`).  Per-column streams
 come from `column_seed(seed, name)`, the counterpart of the reference's
 crc32-folded `column_key`: the column NAME, not its dict position, picks
 the stream.  Where a test must reproduce the reference's ciphertexts it
@@ -380,10 +380,11 @@ class Table:
                              "without a pending delta run")
         ct = self.columns[name]
         n = self.n_padded if include_padding else self.n_rows
-        parts = [E.decrypt(ks, Ciphertext(ct.c0[lo:lo + E.ENC_CHUNK_ROWS],
-                                          ct.c1[lo:lo + E.ENC_CHUNK_ROWS])
+        step = E.enc_chunk_rows(ks.params)
+        parts = [E.decrypt(ks, Ciphertext(ct.c0[lo:lo + step],
+                                          ct.c1[lo:lo + step])
                            ).cpu().numpy()
-                 for lo in range(0, n, E.ENC_CHUNK_ROWS)]
+                 for lo in range(0, n, step)]
         vals = np.concatenate(parts)[:n] if parts else np.zeros(0)
         if self.delta is not None:
             vals = np.concatenate(
@@ -404,13 +405,15 @@ def append_rows(ks: KeySet, base: Table, new: Table,
     rows, re-padded to the next power of two with `zero_pad_rows`
     encryptions of 0 (salted by the new row count).  No row is
     re-encrypted.  Grows a delta run, and folds a delta run into the
-    base at compaction."""
+    base at compaction.  Each column's pad rows are freed before the
+    next column's are encrypted (at paper-ckks a fold's pad is up to
+    8 GiB a column)."""
     if set(base.columns) != set(new.columns):
         raise ValueError("column mismatch between runs")
     n_total = base.n_rows + new.n_rows
     n_pad = next_pow2(n_total)
-    columns = {}
-    for cname, ct in base.columns.items():
+
+    def fold(cname: str, ct: Ciphertext) -> Ciphertext:
         nct = new.columns[cname]
         parts = [Ciphertext(ct.c0[:base.n_rows], ct.c1[:base.n_rows]),
                  Ciphertext(nct.c0[:new.n_rows], nct.c1[:new.n_rows])]
@@ -418,5 +421,6 @@ def append_rows(ks: KeySet, base: Table, new: Table,
             pad = zero_pad_rows(ks, cname, n_pad - n_total, n_total)
             parts.append(Ciphertext(pad.c0.to(ct.c0.device),
                                     pad.c1.to(ct.c1.device)))
-        columns[cname] = concat_ct_rows(*parts)
+        return concat_ct_rows(*parts)
+    columns = {cname: fold(cname, ct) for cname, ct in base.columns.items()}
     return Table(base.name, columns, n_total, zero_pad_rows=zero_pad_rows)

@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import ring as R
 from repro_torch.kernels import _build
 
 # elements of the plain version's [A, R, K_src, D, K, n] product per chunk
@@ -444,3 +445,28 @@ def eval_coeff0_paper(a0, a1, cek_rev, qs, scale, b0=None,
     _build.check(rc, "eval_coeff0_paper")
     _build.count_launch("eval_coeff0_paper")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the CEK in the reference kernels' bit-reversed eval order
+# ---------------------------------------------------------------------------
+
+def cek_to_br(ks) -> torch.Tensor:
+    """Paper-mode `ks.cek` in the eval domain, bit-reversed ("br-eval")
+    order, [K, n]: the operand the reference's Pallas paper kernel
+    multiplies against.  No Hopper kernel reads it (both Evals read
+    `KeySet.cek_rev`, in the coefficient domain); it exists for parity
+    with the reference and for the tests."""
+    return R.ntt(ks.ring, ks.cek).index_select(-1, ks.ring.bitrev)
+
+
+def cek_gadget_to_br(ks) -> torch.Tensor:
+    """The gadget CEK's eval-domain form (`ks.cek_gadget_ntt`) as [E, K,
+    n], E = K · digits per tower, in bit-reversed order: the reference's
+    Pallas gadget kernel operand.  No Hopper kernel reads it (they read
+    `KeySet.cek_rev_bytes`, in the coefficient domain); it exists for
+    parity with the reference and for the tests."""
+    params = ks.params
+    E = params.num_towers * params.gadget_digits_per_tower
+    flat = ks.cek_gadget_ntt.reshape(E, params.num_towers, params.n)
+    return flat.index_select(-1, ks.ring.bitrev)

@@ -1,7 +1,8 @@
 """The port's public names against the reference's.
 
 For each module a user imports from (`core`, `core.compare`, `db`,
-`db.executor`, `db.table`, `kernels.ops`, `db.shard.spec`,
+`db.executor`, `db.table`, `kernels.ops`, `kernels.cmp_eval`,
+`kernels.ntt`, `db.shard.spec`,
 `launch.elastic`, the LM's `models.layers`, `models.moe`,
 `models.rglru`, `models.xlstm`, `models.serve`, `models.transformer`,
 and training's `train.optimizer`, `train.compress`, `train.data`,
@@ -15,7 +16,10 @@ those not starting with `_` that it defines, or, for a package, that it
 re-exports.  The names this diff once found missing (`compare_many`,
 `fused_compare`, `Table.column_names`, `kernels.ops.negacyclic_mul` and
 `core`'s exports) are also held equal to the reference on the same
-inputs (the test-bfv KeySet of `tests/conftest.py`).
+inputs (the test-bfv KeySet of `tests/conftest.py`), and so are
+`kernels.cmp_eval.cek_to_br` and `cek_gadget_to_br` (test-bfv and
+test-ckks, both modes, on the port's keys handed to a reference
+`KeySet`).
 """
 import importlib
 import inspect
@@ -31,25 +35,29 @@ import torch
 from repro.core import compare as RC
 from repro.db import executor as RX
 from repro.db import plan as RP
+from repro.kernels import cmp_eval as RCK
 from repro.kernels import ops as RKO
 from repro_torch.core import compare as TC
 from repro_torch.db import executor as TX
 from repro_torch.db import plan as TP
+from repro_torch.kernels import cmp_eval as TCK
 from repro_torch.kernels import ops as TKO
 
 from test_torch_core import jitted_ref, n_, t_
 from test_torch_db import _fixture
+from test_torch_join import gadget_keys
+from test_torch_write import _keys as paper_keys
 
 jax.config.update("jax_enable_x64", True)
 
 MODULES = ("core", "core.compare", "db", "db.executor", "db.table",
-           "kernels.ops", "db.shard.spec", "launch.elastic",
-           "models.layers", "models.moe", "models.rglru", "models.xlstm",
-           "models.serve", "models.transformer", "train.optimizer",
-           "train.compress", "train.data", "train.checkpoint",
-           "train.train_lib", "launch.train", "launch.mesh", "launch.specs",
-           "launch.roofline", "launch.dryrun", "launch.report",
-           "parallel.sharding", "parallel.constrain")
+           "kernels.ops", "kernels.cmp_eval", "kernels.ntt", "db.shard.spec",
+           "launch.elastic", "models.layers", "models.moe", "models.rglru",
+           "models.xlstm", "models.serve", "models.transformer",
+           "train.optimizer", "train.compress", "train.data",
+           "train.checkpoint", "train.train_lib", "launch.train",
+           "launch.mesh", "launch.specs", "launch.roofline", "launch.dryrun",
+           "launch.report", "parallel.sharding", "parallel.constrain")
 CLASSES = (("db.table", "Table"), ("db.shard.spec", "ShardSpec"))
 
 # (module or "module.Class", name) -> why the port has no such name
@@ -63,6 +71,13 @@ ABSENT = {
     ("db.table", "column_key"):
         "a jax.random key per column; the port derives a seed per column "
         "(db.table.column_seed) for its torch.Generator",
+    ("kernels.cmp_eval", "DEFAULT_BLOCK_B"):
+        "the Pallas grid's rows per program; the Hopper kernels fix their "
+        "own geometry (warps per 16-row tile, clusters per lane set) in "
+        "csrc/cmp_eval.cu",
+    ("kernels.ntt", "DEFAULT_BLOCK_B"):
+        "the Pallas grid's rows per program; the Hopper kernels fix their "
+        "own geometry (rows per block, minimum blocks per SM) in csrc/ntt.cu",
     ("launch.roofline", "collective_bytes"):
         "parses XLA's post-SPMD HLO text; the port has no HLO: the "
         "dry-run records each collective's kind, mesh axis and result "
@@ -202,4 +217,23 @@ def test_ops_negacyclic_mul_matches_reference():
                               interpret=True)
     got = TKO.negacyclic_mul(t_(a), t_(b), tks.ring)
     assert got.dtype == torch.int64
+    assert np.array_equal(n_(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("mode", ["paper", "gadget"])
+@pytest.mark.parametrize("profile", ["test-bfv", "test-ckks"])
+def test_cek_to_br_matches_reference(profile, mode):
+    """The CEK in the reference kernels' bit-reversed eval order: paper
+    mode's `cek_to_br` [K, n], gadget mode's `cek_gadget_to_br` [E, K,
+    n], byte-equal to the reference's on the same key material."""
+    if mode == "paper":
+        ref_ks, tks, _ = paper_keys(profile)
+        want, got = RCK.cek_to_br(ref_ks), TCK.cek_to_br(tks)
+        shape = (tks.params.num_towers, tks.params.n)
+    else:
+        ref_ks, tks = gadget_keys(profile)
+        want, got = RCK.cek_gadget_to_br(ref_ks), TCK.cek_gadget_to_br(tks)
+        p = tks.params
+        shape = (p.num_towers * p.gadget_digits_per_tower, p.num_towers, p.n)
+    assert tuple(got.shape) == shape and got.dtype == torch.int64
     assert np.array_equal(n_(got), np.asarray(want))
