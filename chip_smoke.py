@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --shard-phases   # the build, 9, 10 and 10b only
-    python3 chip_smoke.py --ckks-phases    # the build and 11b only
+    python3 chip_smoke.py --ckks-phases    # the build, 11b and 11c only
 
 Phases, each printing one JSON line:
 
@@ -80,7 +80,10 @@ Phases, each printing one JSON line:
                builds timed), then nested loops on a cut (the first 8,192
                x 4,096 rows) in gadget mode (two joins deduped onto one
                grid, and a [4 x 4]-shard join) and in paper mode (the
-               write keys).  Then the gadget Eval against its plain
+               write keys); the sort-merge join again with both sides
+               in 4 shards (their ShardedIndexes built by the join),
+               its pairs equal to the unsharded join's.  Then the
+               gadget Eval against its plain
                version at every shape the path gave it, the paper Eval
                likewise (its calls reconciled), and the pair-grid
                Eval layouts (gadget: the negated right column against
@@ -96,8 +99,9 @@ Phases, each printing one JSON line:
                re-encrypted (same seed, same rows) and placed, the 8
                requests and the Range/TopK-8, the ShardedIndex Eq probe,
                431 inserts with a Range, the union scan, compaction, the
-               Range again, the [4 x 4] nested join on the join phase's
-               cut, and one paper-mode scan under the write keys.  Every
+               Range again, the [4 x 4] nested and sort-merge joins on
+               the join phase's cut, and one paper-mode scan under the
+               write keys.  Every
                raw fused-scan and pair-grid value byte-equal to the
                unplaced runs' (sha256 of each call's array), every answer
                equal to theirs and to the plaintext; the gadget and paper
@@ -140,6 +144,24 @@ Phases, each printing one JSON line:
                both multiplies and ntt_br against their plain versions
                at every shape the phase launched them at, launches
                reconciled; walls, queries/s, inserts/s, peak memory.
+ 11c. ckks_shard — the float phase's tables, queries and writes on
+               ShardedTables (its keys reused, its tables freed): (a) in
+               4 shards of 512 slots, (b) in 4 of 4,096 (16 GiB), run
+               unplaced and then placed on four mesh positions over the
+               cards ([cuda:0] * 4 on one card; cuda:0-3 on four, else
+               recorded as skipped): ShardedIndex builds, the ε-band
+               Eq, Ranges and And + TopK (linear and indexed), a
+               ShardedQueryServer batch of 8 with its own τ a lane, the
+               ε-band sort-merge join (b).v x (a).v with its verify pass
+               and a nested cross-check on (b)'s first 1,024 rows, then
+               (a) freed and on (b) 819 inserts routed to the shards, 8
+               deletes, union reads, compaction (each shard 4,096 ->
+               8,192 slots), the reads again.  Every answer equal to the
+               plaintext and to 11b's unsharded answer; the placed run's
+               raw scan, grid and verify values sha256-equal to the
+               unplaced run's; every gadget Eval, multiply and ntt_br
+               shape equal to plain, launches reconciled (paper Eval 0);
+               walls, busy shares, each card's peak.
  12. lm      — smollm-360m at full width in bfloat16 (seeded weights):
                8 requests in batches of 4, prompt 32, 16 greedy tokens;
                one batch's decode steps under torch.profiler (device
@@ -222,12 +244,13 @@ Phases, each printing one JSON line:
  17. card    — the card's name and power limit (nvidia-smi), then one
                {"kernels": [...]} line with every kernel's numbers (the
                n = 16,384 shapes as rows named with the profile, the
-               float path's as "...@paper-ckks/db", the HADES cells'
+               float path's as "...@paper-ckks/db" and its sharded
+               tables' as "...@paper-ckks/shard", the HADES cells'
                largest shape as "eval_coeff0_gadget@hades-cmp").
 
 Launch counts are zeroed just before each path (serve, keymul, write,
-shard, join, each placement mesh, loop, ckks, the lm bridge, train, the
-HADES cells, the examples)
+shard, join, each placement mesh, loop, ckks, each ckks_shard layout,
+the lm bridge, train, the HADES cells, the examples)
 and read just after; each path's kernels must have launched.  The LM families and the
 training path launch none of the kernels: their modules are plain
 PyTorch, as the reference's are plain JAX.  The last
@@ -299,6 +322,7 @@ CKKS_MICRO = 100
 CKKS_RANGES = 4
 CKKS_INSERT = 819
 CKKS_DELETE = 8
+CKKS_SHARD_CUT = 1024       # (b)'s rows in the sharded nested cross-check
 # the LM families beyond dense GQA, each at its published config, with
 # the smollm phase's traffic: MLA, MoE, RG-LRU with local attention,
 # xLSTM, the whisper encoder with cross attention, llava's patch prefix
@@ -396,6 +420,8 @@ EXAMPLE_KERNELS = ("eval_coeff0_gadget", "eval_coeff0_paper",
 # the float path runs gadget keygen, encryption and the gadget Eval
 CKKS_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt", "negacyclic_mul",
                 "ntt_br_fwd")
+# the sharded float phase reuses the float phase's keys: no keygen
+CKKS_SHARD_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt")
 
 
 def emit(obj) -> None:
@@ -1830,9 +1856,12 @@ def phase_join(ks, wks, vals, rate) -> tuple:
     before it: sort-merge at full hg38 (gadget, serve keys), then nested
     loops on the JOIN_CUT rows in gadget mode (two joins sharing one grid
     through a QueryServer batch, and a [SHARDS x SHARDS]-shard join) and
-    in paper mode (the write keys `wks`); the sort-merge join and the
-    shared grid run under torch.profiler.  Returns the cut tables for
-    the layout checks."""
+    in paper mode (the write keys `wks`); between them the sort-merge
+    join again on both sides split into SHARDS unplaced shards (each
+    side's ShardedIndex built by the join), pairs equal to the
+    unsharded join's, wall and peak recorded.  The sort-merge join and
+    the shared grid run under torch.profiler.  Returns the cut tables
+    for the layout checks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import db
@@ -1891,7 +1920,22 @@ def phase_join(ks, wks, vals, rate) -> tuple:
         "k", np.arange(cl))}, cl)
     rcut = Table.from_ciphertexts("hg38_r_cut", {"k": right.gather(
         "k", np.arange(cr))}, cr)
+
+    # ---- sort-merge again over SHARDS shards of each side ----------------
+    unplaced = db.ShardSpec.create(SHARDS, use_mesh=False)
+    sl = db.ShardedTable.from_table(ks, left, spec=unplaced)
+    sr = db.ShardedTable.from_table(ks, right, spec=unplaced)
     del left, right, li, ri, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ssm = db.execute_join(ks, sl, sr, join, strategy="sort_merge")
+    walls["sort_merge_sharded_s"] = sync_s(t0)
+    ssm_peak = torch.cuda.max_memory_allocated()
+    ssm_ok = bool(np.array_equal(ssm.pairs, sm.pairs)
+                  and np.array_equal(ssm.pairs, want))
+    del sl, sr
     gc.collect()
     torch.cuda.empty_cache()
     want_cut = np.argwhere(lk[:cl, None] == rk[None, :cr])
@@ -1932,7 +1976,7 @@ def phase_join(ks, wks, vals, rate) -> tuple:
     launches = dict(_build.LAUNCHES)
     stop_recording()
     pstop()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(sm_peak, ssm_peak, torch.cuda.max_memory_allocated())
     path_shapes = check_gadget_shapes(ks, lcut.column("k"), shapes,
                                       SEED + 46, rate)
     paper_shapes = check_paper_shapes(
@@ -1955,6 +1999,9 @@ def phase_join(ks, wks, vals, rate) -> tuple:
         "sort_merge": {"exact": sm_ok, **stats(sm),
                        "index_build_compares": index_build_compares,
                        "peak_mem_bytes": sm_peak, "device": sm_dev},
+        "sort_merge_sharded": {"exact": ssm_ok, **stats(ssm),
+                               "shards": list(ssm.stats.shards),
+                               "peak_mem_bytes": ssm_peak},
         "nested_gadget": {"exact": nested_ok, **stats(nres[j1]),
                           "batch_joins": b.joins,
                           "grid_evals": b.grid_evals,
@@ -1970,6 +2017,8 @@ def phase_join(ks, wks, vals, rate) -> tuple:
     }
     emit(out)
     require(sm_ok, "the sort-merge join's pairs differ from the plaintext")
+    require(ssm_ok, f"the [{SHARDS}x{SHARDS}]-shard sort-merge join's pairs "
+            "differ from the unsharded join's or the plaintext")
     require(nested_ok, "the nested cut's pairs differ (plaintext/sort-merge)")
     require(b.grid_evals == tiles,
             f"two joins launched {b.grid_evals} grid tiles, not {tiles}")
@@ -2083,8 +2132,9 @@ def phase_placement(ks, wks, vals, lcut, rcut, pl, pr, base, join,
     cards (`[cuda:0] * 4` on one card: d = 4, each slab's launches on its
     position's card).  Each mesh re-encrypts the serve keys' hg38 table
     under the shard phase's seed, places it and runs `_shard_traffic`,
-    then the [SHARDS x SHARDS] nested join on the join phase's cut and
-    one paper-mode scan under the write keys `wks` over the paper cut
+    then the [SHARDS x SHARDS] nested and sort-merge joins on the join
+    phase's cut (the sort-merge's wall and each card's peak recorded)
+    and one paper-mode scan under the write keys `wks` over the paper cut
     `pl`, with every launch count zeroed just before it.  Every raw
     fused-scan and pair-grid value, answer and pair equals the unplaced
     runs' (`base` from the shard phase, `join`'s grid, this phase's
@@ -2161,6 +2211,16 @@ def phase_placement(ks, wks, vals, lcut, rcut, pl, pr, base, join,
             joined = db.execute_join(ks, sl, sr, P.Join(None, None, on="k"),
                                      strategy="nested")
             join_s = sync_s(t0)
+            before = [torch.cuda.max_memory_allocated(c)
+                      for c in range(count)]
+            for c in range(count):
+                torch.cuda.reset_peak_memory_stats(c)
+            t0 = time.perf_counter()
+            merged = db.execute_join(ks, sl, sr, P.Join(None, None, on="k"),
+                                     strategy="sort_merge")
+            sort_merge_s = sync_s(t0)
+            sm_peaks = {f"cuda:{c}": torch.cuda.max_memory_allocated(c)
+                        for c in range(count)}
             del sl, sr
             t0 = time.perf_counter()
             pt = db.ShardedTable.from_table(wks, pl, spec=spec)
@@ -2173,7 +2233,8 @@ def phase_placement(ks, wks, vals, lcut, rcut, pl, pr, base, join,
             stop_g()
             stop_p()
             hash_s = stop_s() + stop_j()
-        peaks = {f"cuda:{c}": torch.cuda.max_memory_allocated(c)
+        peaks = {f"cuda:{c}": max(before[c],
+                                  torch.cuda.max_memory_allocated(c))
                  for c in range(count)}
         answers_ok = _same_answers(t["answers"], base["answers"])
         truth_ok = bool(
@@ -2186,6 +2247,9 @@ def phase_placement(ks, wks, vals, lcut, rcut, pl, pr, base, join,
                                vals == t["target"]))
         raw_ok = (scan_raw == base["raw"] + p_raw and grid_raw == join_raw)
         join_ok = bool(np.array_equal(joined.pairs, want_cut))
+        # the join phase held the unsharded sort-merge's pairs on the cut
+        # to want_cut
+        sort_merge_ok = bool(np.array_equal(merged.pairs, want_cut))
         paper_ok = bool(np.array_equal(pscan.mask, p_want)
                         and np.array_equal(pscan.mask, p_flat.mask))
         gadget = check_gadget_shapes(ks, source, gshapes, SEED + 122, rate)
@@ -2219,12 +2283,18 @@ def phase_placement(ks, wks, vals, lcut, rcut, pl, pr, base, join,
             "truth_ok": truth_ok, "join_exact": join_ok,
             "join_pairs": int(len(joined.pairs)),
             "join_eval_calls": joined.stats.eval_calls,
+            "sort_merge_exact": sort_merge_ok,
+            "sort_merge": {k: getattr(merged.stats, k) for k in (
+                "eval_calls", "build_compares", "merge_compares",
+                "adjacency_compares")} | {"peak_mem_bytes": sm_peaks},
             "paper_scan_exact": paper_ok,
             "mesh_devices_in_stats": [
                 t["res"][t["ids"][-1]].stats.mesh_devices,
                 joined.stats.left.mesh_devices],
             "walls": {"partition_s": partition_s, **t["walls"],
-                      "nested_join_s": join_s, "paper_scan_s": paper_s,
+                      "nested_join_s": join_s,
+                      "sort_merge_join_s": sort_merge_s,
+                      "paper_scan_s": paper_s,
                       "raw_hash_s": hash_s},
             "unplaced_walls": base["walls"], "peak_mem_bytes": peaks,
             "launches": launches, "gadget_shapes": gadget,
@@ -2239,6 +2309,8 @@ def phase_placement(ks, wks, vals, lcut, rcut, pl, pr, base, join,
                 f"placed answers differ from unplaced or the truth ({name})")
         require(join_ok, f"the placed [{SHARDS}x{SHARDS}] join's pairs "
                 f"differ ({name})")
+        require(sort_merge_ok, f"the placed [{SHARDS}x{SHARDS}] sort-merge "
+                f"join's pairs differ ({name})")
         require(paper_ok, f"the placed paper scan differs ({name})")
         require(gadget["equal"] and paper["equal"],
                 f"an Eval shape of the placed path != plain ({name})")
@@ -2252,7 +2324,7 @@ def phase_placement(ks, wks, vals, lcut, rcut, pl, pr, base, join,
                 f"{run['mesh_devices_in_stats']}")
         require(name != "positions" or d == SHARDS,
                 f"the explicit mesh has d = {d}, not {SHARDS}")
-        del t, joined, pscan
+        del t, joined, merged, pscan
     torch.cuda.empty_cache()
     return {"phase": "placement", "device_count": count, "runs": runs}
 
@@ -2750,7 +2822,8 @@ def _lattice(rng, n: int) -> np.ndarray:
 def check_ntt_calls(calls: dict, launches: dict, rate) -> dict:
     """`ntt_br` against its plain version at every distinct call
     `record_calls(("ntt_br",))` recorded (`check_calls`), each timed by
-    CUDA events beside its bound."""
+    CUDA events beside its bound, on the card that holds its operand."""
+    import torch
     from repro_torch.kernels import ntt as NK
     checked = check_calls(calls, {k: launches[k] for k in
                                   ("ntt_br_fwd", "ntt_br_inv")})
@@ -2758,12 +2831,16 @@ def check_ntt_calls(calls: dict, launches: dict, rate) -> dict:
     for n_calls, counter, _, arg in calls.values():
         x, ring, fwd = arg["x"], arg["ring"], arg["fwd"]
         K, n = x.shape[-2:]
-        timed.append({
-            "kernel": counter, "shape": list(x.shape), "calls": n_calls,
-            "ms": time_cuda(lambda: NK.ntt_br(x, ring, fwd=fwd), 5),
-            "plain_ms": time_cuda(lambda: NK.ntt_br_plain(x, ring, fwd=fwd),
-                                  1),
-            **ntt_bound(int(np.prod(x.shape[:-2])), K, n, rate)})
+        # a KeySet replica's transforms run on its own card: time there
+        with (torch.cuda.device(x.device) if x.is_cuda
+              else contextlib.nullcontext()):
+            timed.append({
+                "kernel": counter, "device": str(x.device),
+                "shape": list(x.shape), "calls": n_calls,
+                "ms": time_cuda(lambda: NK.ntt_br(x, ring, fwd=fwd), 5),
+                "plain_ms": time_cuda(
+                    lambda: NK.ntt_br_plain(x, ring, fwd=fwd), 1),
+                **ntt_bound(int(np.prod(x.shape[:-2])), K, n, rate)})
     return {**checked, "timed": timed}
 
 
@@ -2797,7 +2874,9 @@ def phase_ckks(dev, rate) -> dict:
     Then the gadget Eval, both multiplies and `ntt_br` against their
     plain versions at every shape the phase launched them at (tolerance
     0), the calls reconciled with the launch counts; walls, queries/s,
-    inserts/s and the peak memory of each part."""
+    inserts/s and the peak memory of each part.  Returns the record and
+    what `phase_ckks_shard` replays: the keys, the data, every query with
+    its truth and this phase's answer, the join's pairs and the writes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2817,6 +2896,9 @@ def phase_ckks(dev, rate) -> dict:
     aux = {k: _lattice(rng, len(v)) for k, v in vals.items()}
     seeds = iter(range(7000, 8000))
     walls, peaks, live, ok = {}, {}, {}, {}
+    # what the sharded phase replays: the queries, their truths and this
+    # phase's unsharded answers (host arrays)
+    base = {"vals": vals, "aux": aux, "reads": {"a": [], "b": []}}
 
     def sync_s(t0):
         torch.cuda.synchronize()
@@ -2906,6 +2988,7 @@ def phase_ckks(dev, rate) -> dict:
             ind = db.execute(ks, t, q, indexes=ix)
             walls[f"eq_indexed_{k}_s"] = sync_s(t0)
             ok[f"eq_{k}"] = same(lin, want) and same(ind, want)
+            base["reads"][k].append(("eq", q, want, lin.mask, lin.row_ids))
             ranges = [draw_range(v) for _ in range(CKKS_RANGES)]
             plans = [db.Range("v", fenc(lo), fenc(hi)) for lo, hi in ranges]
             for name, use in (("linear", None), ("indexed", ix)):
@@ -2915,6 +2998,10 @@ def phase_ckks(dev, rate) -> dict:
                 ok[f"range_{name}_{k}"] = all(
                     same(r, (v >= lo) & (v <= hi))
                     for r, (lo, hi) in zip(res, ranges))
+            base["reads"][k] += [
+                (f"range{i}", q, (v >= lo) & (v <= hi), r.mask, r.row_ids)
+                for i, (q, r, (lo, hi)) in enumerate(zip(plans, res,
+                                                         ranges))]
             lo = float(np.percentile(v, 30)) - G / 2
             hi = float(np.percentile(v, 70)) + G / 2
             eq_v, band = float(aux[k][n // 2]), G + G / 2
@@ -2928,6 +3015,11 @@ def phase_ckks(dev, rate) -> dict:
             ok[f"and_topk_{k}"] = same(res, want) and (
                 v[res.row_ids].tolist()
                 == sorted(v[want].tolist(), reverse=True)[:5])
+            base["reads"][k].append(("and_topk", query, want, res.mask,
+                                     res.row_ids))
+        # the loops' last index dict would keep (b)'s index alive through
+        # compaction, beside the merged one
+        del ix, use
         peak("queries")
 
         # ---- 7. a batch of 8 over (b)'s index, each with its own τ ------
@@ -2957,6 +3049,8 @@ def phase_ckks(dev, rate) -> dict:
         bs = server.batch_log[0]
         batch = {"queries": bs.queries, "eval_calls": bs.eval_calls,
                  "index_compares": bs.index_compares}
+        base["batch"] = [(q, want, got[i].mask, got[i].row_ids)
+                         for i, (q, want) in zip(qids, reqs)]
 
         # ---- 9. the ε-band sort-merge join of (b).v against (a).v -------
         band = G + G / 2
@@ -2972,6 +3066,8 @@ def phase_ckks(dev, rate) -> dict:
         ok["join"] = bool(np.array_equal(jres.pairs, want_pairs)
                           and jres.stats.verify_compares > 0)
         js = jres.stats
+        base["join"] = {"band": band, "pairs": jres.pairs,
+                        "want": want_pairs}
         join = {"pairs": len(jres), "eval_calls": js.eval_calls,
                 "merge_compares": js.merge_compares,
                 "adjacency_compares": js.adjacency_compares,
@@ -3008,6 +3104,9 @@ def phase_ckks(dev, rate) -> dict:
         q_rg = db.Range("v", fenc(lo), fenc(hi))
         want_eq = (np.abs(all_v - target) <= eq_eps) & alive
         want_rg = (all_v >= lo) & (all_v <= hi) & alive
+        base["writes"] = {"insert": ins, "dead": dead, "q_eq": q_eq,
+                          "q_rg": q_rg, "want_eq": want_eq,
+                          "want_rg": want_rg, "masks": {}}
 
         def union_reads(tag):
             for name, use in (("scan", None), ("indexed", ix)):
@@ -3017,6 +3116,8 @@ def phase_ckks(dev, rate) -> dict:
                 walls[f"{tag}_{name}_s"] = sync_s(t0) / 2
                 ok[f"{tag}_{name}"] = (same(r_eq, want_eq)
                                        and same(r_rg, want_rg))
+                base["writes"]["masks"][f"{tag}_{name}"] = (r_eq.mask,
+                                                            r_rg.mask)
         union_reads("union")
         gc.collect()
         peak("union_reads")
@@ -3085,7 +3186,372 @@ def phase_ckks(dev, rate) -> dict:
     require(reconciled, f"launches {launches} != the recorded calls")
     require(all(launches[k] > 0 for k in CKKS_KERNELS),
             f"a kernel never launched on the float path: {launches}")
-    return out
+    return out, {**base, "ks": ks}
+
+
+def _shard_index_sorted(v: np.ndarray, st, ix) -> bool:
+    """Each shard's index run of a ShardedTable ascends over its rows'
+    plaintext, and the runs cover every row id once."""
+    runs = [st.global_ids(s)[sh.perm] for s, sh in enumerate(ix.shards)]
+    return bool(all(np.all(np.diff(v[g]) >= 0) for g in runs)
+                and np.array_equal(np.sort(np.concatenate(runs)),
+                                   np.arange(len(v))))
+
+
+def _ckks_shard_run(ks, spec, base, rate) -> dict:
+    """One layout of `phase_ckks_shard`: the float phase's tables
+    encrypted straight into SHARDS shards under `spec` (the same seeds
+    in every layout, so the same ciphertexts), their ShardedIndexes, the
+    float phase's reads (linear and indexed), its batch through a
+    ShardedQueryServer, the ε-band sort-merge join and a nested
+    cross-check, then (a) freed and (b) written and compacted, with
+    every launch count zeroed just before and read just after.  Every
+    answer is held against the plaintext and the float phase's
+    unsharded answer; every raw scan, grid and verify value is recorded
+    (sha256) for the placed run's comparison; then each kernel against
+    its plain version at every shape this run gave it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import db, obs
+    from repro_torch.core.ckks import eps_to_tau
+    from repro_torch.db import join as J
+    from repro_torch.db.shard import executor as SX
+    from repro_torch.db.shard import join as SJ
+    from repro_torch.kernels import _build
+
+    vals, aux, hp = base["vals"], base["aux"], ks.params
+    count = torch.cuda.device_count()
+    walls, peaks, live, ok, devs, answers = {}, {}, {}, {}, {}, []
+
+    def sync_s(t0):
+        for c in range(count):
+            torch.cuda.synchronize(c)
+        return time.perf_counter() - t0
+
+    def peak(part):
+        """Each card's peak since the last part (then reset), and what
+        is still allocated."""
+        peaks[part], live[part] = {}, {}
+        for c in range(count):
+            torch.cuda.synchronize(c)
+            peaks[part][f"cuda:{c}"] = torch.cuda.max_memory_allocated(c)
+            live[part][f"cuda:{c}"] = torch.cuda.memory_allocated(c)
+            torch.cuda.reset_peak_memory_stats(c)
+
+    def held(res, want, mask0, rows0, v=None):
+        """The answer against the truth and the unsharded answer (a
+        TopK's rows by their values: ties may rank either way)."""
+        answers.extend([res.mask, res.row_ids])
+        rows_ok = (np.array_equal(v[res.row_ids], v[rows0]) if v is not None
+                   else np.array_equal(res.row_ids, rows0))
+        return bool(np.array_equal(res.mask, want)
+                    and np.array_equal(res.mask, mask0) and rows_ok)
+
+    def profiled():
+        return profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in range(count):
+        torch.cuda.reset_peak_memory_stats(c)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    gshapes, gstop = record_gadget_shapes()
+    mshapes, mstop = record_mul_shapes()
+    ncalls, nstop = record_calls(("ntt_br",))
+    raws = {kind: record_raw(mod, fn) for kind, (mod, fn) in (
+        ("scan", (SX, "sharded_fused_eval")),
+        ("grid", (SJ, "sharded_pair_eval")),
+        ("verify", (J, "_class_values")))}
+    t_run = time.perf_counter()
+    try:
+        # ---- the tables and their ShardedIndexes -------------------------
+        tables, idx = {}, {}
+        for k in ("a", "b"):
+            t0 = time.perf_counter()
+            tables[k] = db.ShardedTable.from_arrays(
+                ks, f"ckks_{k}", {"v": vals[k], "aux": aux[k]},
+                SEED + 165 + (k == "b"), spec=spec)
+            walls[f"encrypt_{k}_s"] = sync_s(t0)
+        geometry = {k: {"shard_rows": t.shard_rows.tolist(),
+                        "block": t.n_padded_per_shard,
+                        "slabs": t.columns["v"].c0.num_slabs}
+                    for k, t in tables.items()}
+        peak("encrypt")
+        for k in ("a", "b"):
+            with profiled() if k == "b" else contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                idx[k] = db.ShardedIndex.build(ks, tables[k], "v")
+                walls[f"index_{k}_s"] = sync_s(t0)
+            ok[f"index_{k}"] = _shard_index_sorted(vals[k], tables[k], idx[k])
+        build_compares = {k: ix.build_compares for k, ix in idx.items()}
+        devs["index_build_b"] = _device_summary(prof, walls["index_b_s"])
+        del prof
+        peak("index_build")
+
+        # ---- the float phase's reads, linear and through the index ------
+        for k in ("a", "b"):
+            for name, q, want, mask0, rows0 in base["reads"][k]:
+                kind = name.rstrip("0123456789")
+                for how, use in (("linear", None), ("indexed", {"v": idx[k]})):
+                    t0 = time.perf_counter()
+                    res = db.execute(ks, tables[k], q, indexes=use)
+                    key = f"{kind}_{how}_{k}_s"
+                    walls[key] = walls.get(key, 0.0) + sync_s(t0) / (
+                        CKKS_RANGES if kind == "range" else 1)
+                    ok[f"{kind}_{how}_{k}"] = ok.get(
+                        f"{kind}_{how}_{k}", True) and held(
+                            res, want, mask0, rows0,
+                            vals[k] if kind == "and_topk" else None)
+        # the loop's last index dict would keep (b)'s index alive through
+        # compaction, beside the merged one
+        del use, res
+        peak("queries")
+
+        # ---- the batch of 8 over (b)'s index, each with its own τ --------
+        server = db.ShardedQueryServer(ks, tables["b"],
+                                       indexes={"v": idx["b"]},
+                                       batch=len(base["batch"]))
+        qids = [server.submit(q) for q, *_ in base["batch"]]
+        t0 = time.perf_counter()
+        got = server.run()
+        walls["batch_s"] = sync_s(t0)
+        ok["batch"] = all(held(got[i], want, m0, r0) for i, (_, want, m0, r0)
+                          in zip(qids, base["batch"]))
+        bs = server.batch_log[0]
+        batch = {f: getattr(bs, f) for f in (
+            "queries", "shards", "eval_calls", "scan_compares",
+            "index_compares", "merge_compares")}
+        batch["taus"] = len({hp.tau if q.eps is None
+                             else eps_to_tau(hp, q.eps)
+                             for q, *_ in base["batch"]})
+        del server, got
+        peak("batch")
+
+        # ---- the ε-band sort-merge join (b).v x (a).v, then nested ------
+        jb = base["join"]
+        band_join = db.Join(None, None, on="v", eps=jb["band"])
+        with obs.tracing() as tracer, profiled() as prof:
+            t0 = time.perf_counter()
+            jres = db.execute_join(
+                ks, tables["b"], tables["a"], band_join,
+                strategy="sort_merge", left_indexes={"v": idx["b"]},
+                right_indexes={"v": idx["a"]})
+            walls["join_s"] = sync_s(t0)
+        devs["join"] = _device_summary(prof, walls["join_s"])
+        del prof
+        pairs, js = jres.pairs, jres.stats
+        answers.append(pairs)
+        ok["join"] = bool(np.array_equal(pairs, jb["want"])
+                          and np.array_equal(pairs, jb["pairs"])
+                          and js.verify_compares > 0)
+        join = {"pairs": len(pairs), "shards": list(js.shards),
+                "eval_calls": js.eval_calls,
+                "merge_compares": js.merge_compares,
+                "adjacency_compares": js.adjacency_compares,
+                "verify_compares": js.verify_compares,
+                "build_compares": js.build_compares,
+                "span_ms": _span_ms(tracer)}
+        del jres, tracer
+        peak("join")
+        cut = CKKS_SHARD_CUT
+        t0 = time.perf_counter()
+        scut = db.ShardedTable.from_table(ks, db.Table.from_ciphertexts(
+            "ckks_b_cut", {"v": tables["b"].gather_global(
+                "v", np.arange(cut))}, cut), spec=spec)
+        nres = db.execute_join(ks, scut, tables["a"], band_join,
+                               strategy="nested")
+        walls["nested_cut_s"] = sync_s(t0)
+        answers.append(nres.pairs)
+        ok["nested_cut"] = bool(
+            np.array_equal(nres.pairs, pairs[pairs[:, 0] < cut])
+            and np.array_equal(nres.pairs, np.argwhere(np.abs(
+                vals["b"][:cut, None] - vals["a"][None, :]) <= jb["band"])))
+        join["nested_cut"] = {"rows": [cut, len(vals["a"])],
+                              "pairs": len(nres.pairs),
+                              "eval_calls": nres.stats.eval_calls,
+                              "pair_compares": nres.stats.pair_compares}
+        del scut, nres
+        peak("nested_cut")
+        # the rows the kernel checks draw from: 256 of (a)'s rows
+        source = tables["a"].gather_global("v", np.arange(256))
+        del tables["a"], idx["a"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- writes on (b): inserts, deletes, union reads, compact -------
+        w = base["writes"]
+        tb, ix = tables.pop("b"), {"v": idx.pop("b")}
+        n = len(vals["b"])
+        all_v = np.concatenate([vals["b"], w["insert"]["v"]])
+        routed = tb.route_counts(CKKS_INSERT).tolist()
+        t0 = time.perf_counter()
+        new_ids = tb.insert(ks, w["insert"], SEED + 167)
+        walls["insert_s"] = sync_s(t0)
+        ok["insert_delete"] = bool(
+            np.array_equal(new_ids, np.arange(n, n + CKKS_INSERT))
+            and tb.delete(w["dead"]) == CKKS_DELETE)
+        delta_block = tb.delta_block
+
+        def union_reads(tag):
+            for name, use in (("scan", None), ("indexed", ix)):
+                t0 = time.perf_counter()
+                r_eq = db.execute(ks, tb, w["q_eq"], indexes=use)
+                r_rg = db.execute(ks, tb, w["q_rg"], indexes=use)
+                walls[f"{tag}_{name}_s"] = sync_s(t0) / 2
+                m_eq, m_rg = w["masks"][f"{tag}_{name}"]
+                ok[f"{tag}_{name}"] = (
+                    held(r_eq, w["want_eq"], m_eq, np.nonzero(m_eq)[0])
+                    and held(r_rg, w["want_rg"], m_rg, np.nonzero(m_rg)[0]))
+        union_reads("union")
+        gc.collect()
+        peak("union_reads")
+        t0 = time.perf_counter()
+        cstats = db.compact(ks, tb, ix)
+        walls["compact_s"] = sync_s(t0)
+        peak("compact")
+        ok["compact"] = bool(
+            not tb.has_delta and _shard_index_sorted(all_v, tb, ix["v"])
+            and 0 < cstats.merge_compares < cstats.rebuild_compares)
+        union_reads("post_compact")
+        peak("post_compact")
+        after = {"shard_rows": tb.shard_rows.tolist(),
+                 "block": tb.n_padded_per_shard}
+        del tb, ix, tables, idx
+        launches = dict(_build.LAUNCHES)
+        walls["run_s"] = sync_s(t_run)
+    finally:
+        gstop()
+        mstop()
+        nstop()
+        walls["raw_hash_s"] = sum(stop() for _, stop in raws.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gadget = check_gadget_shapes(ks, source, gshapes, SEED + 168, rate)
+    muls = check_mul_shapes(ks, mshapes, SEED + 169, rate)
+    ntts = check_ntt_calls(ncalls, launches, rate)
+    del source, ncalls
+    torch.cuda.empty_cache()
+    g_calls = sum(s["calls"] * s["launches_per_call"]
+                  for s in gadget["shapes"])
+    m_calls = {k: sum(s["calls"] for s in muls["shapes"] if s["kind"] == k)
+               for k in ("key", "var")}
+    reconciled = (g_calls == launches["eval_coeff0_gadget"]
+                  and m_calls["key"] == launches["negacyclic_mul_ntt"]
+                  and m_calls["var"] == launches["negacyclic_mul"]
+                  and ntts["launches_reconciled"]
+                  and launches["eval_coeff0_paper"] == 0)
+    return {
+        "d": spec.mesh_devices,
+        "cards": [str(x) for x in (spec.mesh.distinct if spec.mesh
+                                   else [ks.device])],
+        "geometry": geometry, "b_after_compaction": after,
+        "routed": routed, "delta_block": delta_block,
+        "exact": all(ok.values()), "checks": ok, "walls": walls,
+        "queries_per_s": len(base["batch"]) / walls["batch_s"],
+        "inserts_per_s": CKKS_INSERT / walls["insert_s"],
+        "index_build_compares": build_compares, "batch": batch,
+        "join": join,
+        "compact": {"merge_compares": cstats.merge_compares,
+                    "rebuild_compares": cstats.rebuild_compares,
+                    "rounds": cstats.merge_rounds},
+        "devices": devs, "peaks": peaks, "live_bytes": live,
+        "peak_mem_bytes": {c: max(p[c] for p in peaks.values())
+                           for c in next(iter(peaks.values()))},
+        "raw": {kind: recs for kind, (recs, _) in raws.items()},
+        "answers": answers,
+        "launches": launches, "launches_reconciled": reconciled,
+        "gadget_shapes": gadget, "mul_shapes": muls, "ntt_calls": ntts}
+
+
+def phase_ckks_shard(base, rate) -> dict:
+    """Float columns on ShardedTables at CKKS_PROFILE (gadget mode), on
+    the float phase's keys and data (`base` from `phase_ckks`, whose
+    tables are freed): (a) in SHARDS shards of 512-slot blocks, (b) in
+    SHARDS of 4,096 (v and aux, 16 GiB on the card), run first unplaced
+    (`ShardSpec.create(SHARDS, use_mesh=False)`) and then placed on
+    SHARDS positions over the cards (`[cuda:0] * 4` on one card: four
+    slabs; cuda:0-3 on four), each run `_ckks_shard_run`'s traffic: the
+    ShardedIndex builds, the ε-band Eq, the Ranges and And + TopK
+    (linear and indexed) on both, a ShardedQueryServer batch of 8 with
+    its own τ a lane, the ε-band sort-merge join of (b).v against (a).v
+    with its verify pass and a nested cross-check on (b)'s first
+    CKKS_SHARD_CUT rows, then on (b) CKKS_INSERT inserts routed to the
+    shards, CKKS_DELETE deletes, union reads (scan and indexed),
+    compaction and the reads again.  Every answer equals the plaintext
+    and the float phase's unsharded answer; the placed run's raw scan,
+    grid and verify values equal the unplaced run's (sha256) and so do
+    its answers; every kernel shape equals its plain version, launches
+    reconciled (the paper Eval at 0)."""
+    import torch
+
+    from repro_torch import db
+
+    ks = base["ks"]
+    home = ks.device
+    count = torch.cuda.device_count()
+    positions = [torch.device("cuda", j % count) if home.type == "cuda"
+                 else home for j in range(SHARDS)]
+    t0 = time.perf_counter()
+    runs = {}
+    for layout, spec in (
+            ("unplaced", db.ShardSpec.create(SHARDS, use_mesh=False)),
+            ("placed", db.ShardSpec.create(SHARDS, devices=positions))):
+        run = _ckks_shard_run(ks, spec, base, rate)
+        emit({"phase": "ckks_shard_run", "layout": layout,
+              **{k: v for k, v in run.items()
+                 if k not in ("answers", "raw")}})
+        runs[layout] = run
+    flat, placed = runs["unplaced"], runs["placed"]
+    raw_equal = placed["raw"] == flat["raw"]
+    answers_equal = (len(placed["answers"]) == len(flat["answers"])
+                     and all(np.array_equal(x, y) for x, y in
+                             zip(placed["answers"], flat["answers"])))
+    distinct = sorted({str(x) for x in positions})
+    four = ({"cards": distinct} if len(distinct) >= SHARDS else
+            {"skipped": f"{count} card(s) visible: the placed run's "
+                        f"{SHARDS} mesh positions lie on {distinct}; a run "
+                        f"over cuda:0-{SHARDS - 1} needs {SHARDS} cards"})
+    out = {
+        "phase": "ckks_shard", "profile": CKKS_PROFILE, "mode": "gadget",
+        "shards": SHARDS, "n": ks.params.n,
+        "rows": {"a": len(base["vals"]["a"]), "b": len(base["vals"]["b"]),
+                 "b_inserted": CKKS_INSERT, "b_deleted": CKKS_DELETE,
+                 "nested_cut": CKKS_SHARD_CUT},
+        "exact": flat["exact"] and placed["exact"],
+        "raw_equal": raw_equal, "answers_equal": answers_equal,
+        "raw_records": {k: len(v) for k, v in flat["raw"].items()},
+        "four_cards": four, "seconds": time.perf_counter() - t0,
+        "runs": {layout: {k: r[k] for k in (
+            "d", "cards", "exact", "checks", "walls", "queries_per_s",
+            "inserts_per_s", "join", "compact", "devices",
+            "peak_mem_bytes", "peaks", "live_bytes", "launches",
+            "launches_reconciled")}
+            | {"shapes_equal": r["gadget_shapes"]["equal"]
+               and r["mul_shapes"]["equal"] and r["ntt_calls"]["equal"]}
+            for layout, r in runs.items()}}
+    emit(out)
+    for layout, r in runs.items():
+        require(r["exact"], f"a sharded float answer diverged from the "
+                f"plaintext or the unsharded answer ({layout}): "
+                f"{r['checks']}")
+        require(r["gadget_shapes"]["equal"] and r["mul_shapes"]["equal"]
+                and r["ntt_calls"]["equal"],
+                f"a kernel != plain at a sharded float shape ({layout})")
+        require(r["launches_reconciled"],
+                f"launches {r['launches']} != the recorded calls ({layout})")
+        require(all(r["launches"][k] > 0 for k in CKKS_SHARD_KERNELS),
+                f"a kernel never launched on the sharded float path "
+                f"({layout}): {r['launches']}")
+    require(placed["d"] == SHARDS,
+            f"the placed mesh has d = {placed['d']}, not {SHARDS}")
+    require(raw_equal, "placed raw scan/grid/verify values differ from "
+            "the unplaced run's")
+    require(answers_equal, "placed answers differ from the unplaced run's")
+    return {**out, "kernel_run": flat}
 
 
 def _serve_and_trace(cfg, params, prompts, dev, frames=None) -> dict:
@@ -4251,8 +4717,8 @@ def _placement_summary(placement: dict) -> dict:
         "d": r["d"], "cards": r["cards"], "walls": r["walls"],
         "peak_mem_bytes": r["peak_mem_bytes"],
         **{k: r[k] for k in ("raw_equal", "answers_equal", "truth_ok",
-                             "join_exact", "paper_scan_exact",
-                             "launches_reconciled")}}
+                             "join_exact", "sort_merge_exact",
+                             "paper_scan_exact", "launches_reconciled")}}
         for r in placement["runs"]}
 
 
@@ -4323,16 +4789,28 @@ def _ckks_summary(ckks: dict) -> dict:
                                     "peak_mem_bytes", "peaks")}}
 
 
-def _ckks_rows(ckks: dict) -> list:
-    """The float path's kernel rows for the card line: each kernel at its
-    most-called shape whose plain version was timed, named with the
-    profile and the engine ("@paper-ckks/db")."""
+def _ckks_shard_summary(shard: dict) -> dict:
+    """The sharded float phase's checks, and each layout's walls, rates
+    and peaks."""
+    return {**{k: shard[k] for k in ("exact", "raw_equal", "answers_equal",
+                                     "four_cards", "seconds")},
+            "runs": {layout: {k: r[k] for k in (
+                "d", "shapes_equal", "launches_reconciled", "walls",
+                "queries_per_s", "inserts_per_s", "peak_mem_bytes")}
+                for layout, r in shard["runs"].items()}}
+
+
+def _ckks_rows(ckks: dict, engine: str = "db") -> list:
+    """The float path's kernel rows for the card line: each kernel the
+    path launched at its most-called shape whose plain version was
+    timed, named with the profile and the engine ("@paper-ckks/db", the
+    sharded tables' "@paper-ckks/shard")."""
     src = "src/repro_torch/kernels/csrc"
 
     def row(name, source, replaces, shapes):
         top = max((s for s in shapes if "plain_ms" in s),
                   key=lambda s: s["calls"])
-        return {"name": f"{name}@{CKKS_PROFILE}/db", "route": "cuda",
+        return {"name": f"{name}@{CKKS_PROFILE}/{engine}", "route": "cuda",
                 "source": f"{src}/{source}", "replaces": replaces,
                 "launches": ckks["launches"][name],
                 "max_abs_err": max(s.get("max_abs_err", 0) for s in shapes),
@@ -4342,24 +4820,24 @@ def _ckks_rows(ckks: dict) -> list:
     muls = ckks["mul_shapes"]["shapes"]
     ntt = ckks["ntt_calls"]
     ntt_err = max((g["max_abs_err"] for g in ntt["by_shape"]), default=0)
-    return [
-        row("eval_coeff0_gadget", "cmp_eval.cu",
-            "src/repro/kernels/cmp_eval.py:48",
-            ckks["gadget_shapes"]["shapes"]),
-        row("negacyclic_mul_ntt", "ntt.cu", "src/repro/kernels/ntt.py:81",
-            [s for s in muls if s["kind"] == "key"]),
-        row("negacyclic_mul", "ntt.cu", "src/repro/kernels/ntt.py:81",
-            [s for s in muls if s["kind"] == "var"]),
-        {**row("ntt_br_fwd", "ntt.cu", "src/repro/kernels/ntt.py:68",
-               [t for t in ntt["timed"] if t["kernel"] == "ntt_br_fwd"]),
-         "max_abs_err": ntt_err},
-    ]
+    rows = [
+        ("eval_coeff0_gadget", "cmp_eval.cu",
+         "src/repro/kernels/cmp_eval.py:48", ckks["gadget_shapes"]["shapes"]),
+        ("negacyclic_mul_ntt", "ntt.cu", "src/repro/kernels/ntt.py:81",
+         [s for s in muls if s["kind"] == "key"]),
+        ("negacyclic_mul", "ntt.cu", "src/repro/kernels/ntt.py:81",
+         [s for s in muls if s["kind"] == "var"]),
+        ("ntt_br_fwd", "ntt.cu", "src/repro/kernels/ntt.py:68",
+         [t for t in ntt["timed"] if t["kernel"] == "ntt_br_fwd"])]
+    return [{**row(*r), **({"max_abs_err": ntt_err}
+                           if r[0] == "ntt_br_fwd" else {})}
+            for r in rows if ckks["launches"][r[0]]]
 
 
 def _main_ckks(t_start: float) -> int:
     """`python3 chip_smoke.py --ckks-phases`: the build, then the float
-    path (phase 11b) alone.  Ends with the card line, the float path's
-    kernel rows and the device record."""
+    phases (11b, and 11c on its keys) alone.  Ends with the card line,
+    the float phases' kernel rows and the device record."""
     import torch
     dev = torch.device("cuda", 0)
     print(json.dumps({"phase": "start", "mode": "ckks-phases",
@@ -4367,11 +4845,17 @@ def _main_ckks(t_start: float) -> int:
                       "python": sys.version.split()[0]}), flush=True)
     phase_build()
     rate = int_mac_rate()
-    ckks = phase_ckks(dev, rate)
+    ckks, ckks_base = phase_ckks(dev, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard = phase_ckks_shard(ckks_base, rate)
+    del ckks_base
     emit({"phase": "done", "mode": "ckks-phases",
           "seconds": time.perf_counter() - t_start,
-          "ckks": _ckks_summary(ckks)})
-    _print_card_and_device(_ckks_rows(ckks))
+          "ckks": _ckks_summary(ckks),
+          "ckks_shard": _ckks_shard_summary(shard)})
+    _print_card_and_device(_ckks_rows(ckks)
+                           + _ckks_rows(shard["kernel_run"], "shard"))
     return 0
 
 
@@ -4409,7 +4893,11 @@ def _main(t_start: float, dryrun: list) -> int:
     loop = phase_loop(dev, rate)
     gc.collect()
     torch.cuda.empty_cache()
-    ckks = phase_ckks(dev, rate)
+    ckks, ckks_base = phase_ckks(dev, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckks_shard = phase_ckks_shard(ckks_base, rate)
+    del ckks_base
     gc.collect()
     torch.cuda.empty_cache()
     lm = phase_lm(dev, rate)
@@ -4434,8 +4922,8 @@ def _main(t_start: float, dryrun: list) -> int:
           "join": {"walls": join["walls"],
                    "peak_mem_bytes": join["peak_mem_bytes"],
                    **{k: join[k]["exact"] for k in (
-                       "sort_merge", "nested_gadget", "nested_sharded",
-                       "nested_paper")}},
+                       "sort_merge", "sort_merge_sharded", "nested_gadget",
+                       "nested_sharded", "nested_paper")}},
           "layouts_equal": layouts["equal"],
           "loop": {k: loop[k] for k in (
               "exact", "point_isolated_ms", "point_mixed_ms",
@@ -4444,6 +4932,7 @@ def _main(t_start: float, dryrun: list) -> int:
               "threaded_exact", "overload", "index_build_s",
               "peak_mem_bytes", "launches_reconciled")},
           "ckks": _ckks_summary(ckks),
+          "ckks_shard": _ckks_shard_summary(ckks_shard),
           "lm": {"tokens_per_s": lm["tokens_per_s"],
                  "prefill_s": lm["prefill_s"], "decode_s": lm["decode_s"],
                  "f32_rel_err": lm["f32_card_vs_cpu"]["rel_err"],
@@ -4544,6 +5033,7 @@ def _main(t_start: float, dryrun: list) -> int:
         ckks_row("negacyclic_mul", "ntt.cu", "src/repro/kernels/ntt.py:81",
                  lm["mul_shapes"], "var"),
         *_ckks_rows(ckks),
+        *_ckks_rows(ckks_shard["kernel_run"], "shard"),
     ])
     return 0
 

@@ -145,32 +145,39 @@ def _compact_sharded(ks: KeySet, stable, indexes: Optional[Dict],
     re-encrypted).  Each `ShardedIndex` merges its per-shard (base run,
     delta run) pairs through the merge network and is rebuilt as an
     object from the merged per-shard `SortedIndex`es; no sort is redone."""
-    from repro_torch.db.shard.index import ShardedIndex
     indexes = indexes if indexes is not None else {}
     stats = CompactionStats(n_base=stable.n_rows, n_delta=stable.n_delta,
                             shards=stable.num_shards)
     if not stable.has_delta:
         return stats
     for col in list(indexes):
-        idx = indexes[col]
-        merged_shards = []
-        for s in range(stable.num_shards):
-            base_s = idx.shards[s]
-            didx = stable.delta_index(ks, col, s)
-            if didx is None:
-                merged_shards.append(base_s)
-                continue
-            # per-shard index perms are LOCAL slot ids: delta rows land at
-            # slots base_rows .. base_rows + d - 1 after the fold below
-            merged, compares = merge_index_runs(
-                ks, base_s, didx, id_offset=int(stable.shard_rows[s]))
-            merged_shards.append(merged)
-            stats.merge_compares += compares
-            stats.merge_rounds += 1
-            n_new_s = int(stable.shard_rows[s]) + stable.delta_rows(s)
-            stats.rebuild_compares += C.bitonic_compare_count(n_new_s)
-        indexes[col] = ShardedIndex(col, merged_shards,
-                                    build_compares=idx.build_compares)
+        # the old index frees as the merged one replaces it, before the
+        # next column's merge and before the fold grows the stacks
+        indexes[col] = _merge_sharded_index(ks, stable, indexes[col], stats)
         stats.indexes_merged += 1
     stable._fold_deltas(ks)
     return stats
+
+
+def _merge_sharded_index(ks: KeySet, stable, idx, stats: CompactionStats):
+    """`idx` with each shard's delta run merged into its base run (the
+    merge network, one round a shard with pending rows), as a new
+    `ShardedIndex`; `stats` counts the merges."""
+    from repro_torch.db.shard.index import ShardedIndex
+    merged_shards = []
+    for s in range(stable.num_shards):
+        didx = stable.delta_index(ks, idx.column, s)
+        if didx is None:
+            merged_shards.append(idx.shards[s])
+            continue
+        # per-shard index perms are LOCAL slot ids: delta rows land at
+        # slots base_rows .. base_rows + d - 1 after the fold
+        merged, compares = merge_index_runs(
+            ks, idx.shards[s], didx, id_offset=int(stable.shard_rows[s]))
+        merged_shards.append(merged)
+        stats.merge_compares += compares
+        stats.merge_rounds += 1
+        n_new_s = int(stable.shard_rows[s]) + stable.delta_rows(s)
+        stats.rebuild_compares += C.bitonic_compare_count(n_new_s)
+    return ShardedIndex(idx.column, merged_shards,
+                        build_compares=idx.build_compares)

@@ -52,6 +52,10 @@ class ShardedIndex:
         for s, ix in enumerate(shards):
             c0[s, :ix.n_rows] = ix.sorted_ct.c0
             c1[s, :ix.n_rows] = ix.sorted_ct.c1
+            # each shard's run becomes a view of the stack, so the
+            # column's sorted rows are held once (its own copy frees
+            # here unless a caller keeps it)
+            ix.sorted_ct = Ciphertext(c0[s, :ix.n_rows], c1[s, :ix.n_rows])
         self._sorted = Ciphertext(c0, c1)                  # [S, Nm, K, n]
 
     # -- construction ------------------------------------------------------

@@ -399,15 +399,18 @@ class ShardedTable:
         block, growing the common block to the next power of two if any
         shard overflows; `fold_pad_rows` encryptions of 0 pad the slack
         and no row is re-encrypted.  Each new stack is built on the home
-        device and placed.  Global ids are unchanged; the id map
-        flips the folded rows from delta to base ownership."""
+        device and placed, and the old one frees as it is replaced,
+        before the next column's stack is built.  Global ids are
+        unchanged; the id map flips the folded rows from delta to base
+        ownership."""
         if not self.has_delta:
             return
         S, n_sp = self.num_shards, self.n_padded_per_shard
         d = np.asarray([self.delta_rows(s) for s in range(S)], np.int64)
         new_rows = self.shard_rows + d
         new_sp = next_pow2(int(new_rows.max()))
-        for ci, (cname, ct) in enumerate(list(self.columns.items())):
+        for ci, cname in enumerate(list(self.columns)):
+            ct = self.columns[cname]
             stack = _stack_empty(S, new_sp, ct.c0.slabs[0])
             for s in range(S):
                 b, ds = int(self.shard_rows[s]), int(d[s])
