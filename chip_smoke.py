@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU and check them.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --shard-phases   # the build, 9, 10 and 10b only
+    python3 chip_smoke.py --shard-phases   # the build, 9, 10, 10b, 11a only
     python3 chip_smoke.py --ckks-phases    # the build, 11b and 11c only
 
 Phases, each printing one JSON line:
@@ -124,6 +124,32 @@ Phases, each printing one JSON line:
                them at, on rows of each tenant's own column, launch
                counts reconciled; each paper shape split into device,
                host and floor times beside its bound.
+ 11a. loop_shard — after phase 11's tables are freed, the serving loop in
+               front of a sharded table: alice's tenant (57,344 live
+               rows, seed 11, phase 11's paper keys) with an unindexed
+               column w beside v, as a plain QueryServer and in 4 shards
+               of 16,384 slots with a ShardedIndex on v, behind one
+               ServeLoop(batch=8), in three layouts: (a) unplaced, the
+               plain tenant registered beside it; (b) placed on
+               [cuda:0] * 4; (c) cuda:0-3 when four cards are visible,
+               else recorded as skipped.  Each: warm-up, 64 isolated
+               point Eqs (classified point), the steady mix (points with
+               deadlines, bulk Ranges on w, a TopK 8), a join (REJECTED
+               at admission, counters unchanged), a write wave (4 insert
+               chunks, compaction at the threshold while queries wait,
+               a delete, an update; every read sees exactly the writes
+               admitted before it), a poisoned plan, one traced round,
+               the always-on round with two client threads, the
+               overload.  Every answer equal to the plaintext and to the
+               plain tenant's; (b)'s and (c)'s raw scan values (sha256)
+               and answers equal to (a)'s; per tenant, submitted = ok +
+               rejected + shed + failed; no new launch signature in the
+               steady mix; after compaction no old stack allocated; the
+               paper Eval, the key multiply and (four cards) ntt_br
+               against their plain versions at every shape, launches
+               reconciled; walls, point p50/p99 (the mixed/isolated
+               ratio printed, not gated), inserts/s, the compaction's
+               wall, busy share, each card's peak.
  11b. ckks   — after the loop's tables are freed, float columns through
                the engine at paper-ckks in gadget mode (n = 16,384: a row
                is 512 KiB), the traffic of benchmarks/fig2_ckks.py and
@@ -156,7 +182,12 @@ Phases, each printing one JSON line:
                and a nested cross-check on (b)'s first 1,024 rows, then
                (a) freed and on (b) 819 inserts routed to the shards, 8
                deletes, union reads, compaction (each shard 4,096 ->
-               8,192 slots), the reads again.  Every answer equal to the
+               8,192 slots), the reads again; then (b) encrypted again
+               (the same ciphertexts) behind a ServeLoop: its ε-band
+               points and Ranges, the And + TopK 5 as bulk, the 819
+               inserts as one chunk (compaction at the threshold with
+               the deletes and two reads queued) and the reads after.
+               Every answer equal to the
                plaintext and to 11b's unsharded answer; the placed run's
                raw scan, grid and verify values sha256-equal to the
                unplaced run's; every gadget Eval, multiply and ntt_br
@@ -249,7 +280,8 @@ Phases, each printing one JSON line:
                largest shape as "eval_coeff0_gadget@hades-cmp").
 
 Launch counts are zeroed just before each path (serve, keymul, write,
-shard, join, each placement mesh, loop, ckks, each ckks_shard layout,
+shard, join, each placement mesh, loop, each loop_shard layout, ckks,
+each ckks_shard layout,
 the lm bridge, train, the HADES cells, the examples)
 and read just after; each path's kernels must have launched.  The LM families and the
 training path launch none of the kernels: their modules are plain
@@ -412,6 +444,9 @@ JOIN_KERNELS = ("eval_coeff0_gadget", "eval_coeff0_paper",
 # bridge paper-ckks gadget keygen, encryption and the gadget Eval
 LOOP_KERNELS = ("eval_coeff0_paper", "negacyclic_mul_ntt", "negacyclic_mul",
                 "ntt_br_fwd")
+# the sharded loop encrypts its table, queries and inserts and runs the
+# paper Eval (keys made before its launch counts are zeroed)
+LOOP_SHARD_KERNELS = ("eval_coeff0_paper", "negacyclic_mul_ntt")
 LM_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt", "negacyclic_mul",
               "ntt_br_fwd")
 # the examples run gadget and paper keygen, encryption and both Evals
@@ -2336,12 +2371,15 @@ def _pcts(lats) -> tuple:
             float(np.percentile(lats, 99)) * 1e3)
 
 
-def _loop_tenant(dev, name, seed, n_rows, n_padded, with_right=False):
+def _loop_tenant(dev, name, seed, n_rows, n_padded, with_right=False,
+                 with_w=False):
     """One tenant's world as the benchmark's `_mk_tenant`: its own paper
     KeySet, its own indexed table (and a 64-row right table), a probe
     pool of 16 values and 8 range bounds.  Each probe carries its truth,
     and the join its pairs, computed here: no check runs inside the
-    loop's timed windows."""
+    loop's timed windows.  `with_w` adds an unindexed column `w` (drawn
+    after the pool and bounds, so `v`'s world is the same) that bulk
+    Ranges scan."""
     import torch
     from repro_torch.core import encrypt as E
     from repro_torch.core.keys import keygen
@@ -2354,8 +2392,16 @@ def _loop_tenant(dev, name, seed, n_rows, n_padded, with_right=False):
     rng = np.random.default_rng(seed)
     vals = rng.integers(0, ks.params.max_operand // 2,
                         n_rows).astype(np.int64)
+    picks = rng.choice(vals, 16, replace=True)
+    spans = [tuple(int(v) for v in np.sort(rng.choice(vals, 2,
+                                                      replace=False)))
+             for _ in range(8)]
+    data = {"v": vals}
+    if with_w:
+        data["w"] = rng.integers(0, ks.params.max_operand // 2,
+                                 n_rows).astype(np.int64)
     t0 = time.perf_counter()
-    table = Table.from_arrays(ks, f"{name}_t", {"v": vals}, seed + 1,
+    table = Table.from_arrays(ks, f"{name}_t", data, seed + 1,
                               n_padded=n_padded)
     torch.cuda.synchronize()
     encrypt_s = time.perf_counter() - t0
@@ -2369,19 +2415,209 @@ def _loop_tenant(dev, name, seed, n_rows, n_padded, with_right=False):
         right = Table.from_arrays(ks, f"{name}_r", {"v": rvals}, seed + 2)
         pairs = np.argwhere(vals[:, None] == rvals[None, :])
     pool = [(E.encrypt(ks, int(v), seed + 10 + i), np.nonzero(vals == v)[0])
-            for i, v in enumerate(rng.choice(vals, 16, replace=True))]
-    bounds = []
-    for i in range(8):
-        lo, hi = (int(v) for v in np.sort(rng.choice(vals, 2,
-                                                     replace=False)))
-        bounds.append((E.encrypt(ks, lo, seed + 100 + i),
-                       E.encrypt(ks, hi, seed + 200 + i),
-                       np.nonzero((vals >= lo) & (vals <= hi))[0]))
-    return dict(name=name, ks=ks, rng=rng, vals=vals, table=table,
-                index=index, right=right, pairs=pairs, pool=pool,
-                bounds=bounds, encrypt_s=encrypt_s, index_build_s=build_s,
+            for i, v in enumerate(picks)]
+    bounds = [(E.encrypt(ks, lo, seed + 100 + i),
+               E.encrypt(ks, hi, seed + 200 + i),
+               np.nonzero((vals >= lo) & (vals <= hi))[0])
+              for i, (lo, hi) in enumerate(spans)]
+    return dict(name=name, ks=ks, rng=rng, vals=vals, data=data,
+                table=table, index=index, right=right, pairs=pairs,
+                pool=pool, picks=picks, bounds=bounds,
+                encrypt_s=encrypt_s, index_build_s=build_s,
                 index_sorted=bool(np.array_equal(vals[index.perm],
                                                   np.sort(vals))))
+
+
+def _on_host(res) -> bool:
+    """A served result's row ids, mask and pairs are host arrays."""
+    return all(isinstance(getattr(res, f, np.zeros(0)), np.ndarray)
+               for f in ("row_ids", "mask", "pairs"))
+
+
+def _rows_are(ids):
+    """A check: the result's row ids, sorted, are `ids`."""
+    return lambda r: np.array_equal(np.sort(r.row_ids), ids)
+
+
+class _Traffic:
+    """What the serving-loop phases (11, 11a, 11c) share around one
+    `ServeLoop`: every ticket is submitted with the check its answer
+    must pass, and `drain` runs the loop until idle, holds each OK
+    answer to its check (host arrays), keeps anything else than OK,
+    REJECTED or SHED in `bad`, tallies each terminal status per tenant
+    and forgets the checked tickets.  Tickets submitted without a check
+    (a poisoned plan) are tallied but kept for the caller to read.
+    Client threads may submit while the daemon pump runs."""
+
+    def __init__(self, loop):
+        import threading
+        self.loop, self.expect, self.bad = loop, {}, []
+        self.submitted: dict = {}        # tenant -> tickets submitted
+        self.tally: dict = {}            # tenant -> {status: count}
+        self._seen: set = set()
+        self._lock = threading.Lock()
+
+    def _count(self, tenant, tk, check):
+        with self._lock:
+            self.submitted[tenant] = self.submitted.get(tenant, 0) + 1
+            if check is not None:
+                self.expect[tk] = check
+        return tk
+
+    def submit(self, tenant, table, query, check=None, **kw):
+        return self._count(tenant, self.loop.submit(tenant, table, query,
+                                                    **kw), check)
+
+    def join(self, tenant, table, join, right, check=None, **kw):
+        return self._count(tenant, self.loop.submit_join(
+            tenant, table, join, right, **kw), check)
+
+    def write(self, kind, tenant, table, *args, check=None, **kw):
+        fn = getattr(self.loop, f"submit_{kind}")
+        return self._count(tenant, fn(tenant, table, *args, **kw), check)
+
+    def drain(self) -> dict:
+        from repro_torch.db.serve_loop import OK, REJECTED, SHED
+        res = self.loop.run_until_idle()
+        for tk, r in res.items():
+            if tk not in self._seen:
+                self._seen.add(tk)
+                per = self.tally.setdefault(r.tenant, {})
+                per[r.status] = per.get(r.status, 0) + 1
+            if tk not in self.expect:
+                continue
+            check = self.expect.pop(tk)
+            if r.status == OK and not (_on_host(r.result)
+                                       and check(r.result)):
+                self.bad.append((tk, r.klass, "wrong answer"))
+            elif r.status not in (OK, REJECTED, SHED):
+                self.bad.append((tk, r.klass, r.status, r.error))
+            self.loop.forget(tk)
+        return res
+
+    def reconciled(self) -> dict:
+        """Per tenant: submitted, the tally of terminal statuses, and
+        whether submitted = ok + rejected + shed + failed and the loop's
+        `serve.rejected/shed/failed` counters equal the tally."""
+        from repro_torch import obs
+        out = {}
+        for t, n in self.submitted.items():
+            per = self.tally.get(t, {})
+            counters = {s: obs.REGISTRY.value(f"serve.{s.lower()}",
+                                              tenant=t)
+                        for s in ("REJECTED", "SHED", "FAILED")}
+            out[t] = {"submitted": n, **per,
+                      "ok": n == sum(per.values()) and all(
+                          counters[s] == per.get(s, 0) for s in counters)}
+        return out
+
+
+def _latencies(res, tickets) -> list:
+    """Each OK ticket's submit-to-answer seconds."""
+    return [res[t].latency_s for t in tickets if res[t].status == "OK"]
+
+
+def _threaded_round(traffic, clients) -> dict:
+    """The always-on mode: the loop's daemon pump serves `clients`, each a
+    thread that encrypts 4 values drawn from its own and submits each as
+    an Eq (`clients`: (keys, values, rng, seed, probe), `probe(ct, v)`
+    submitting and returning (ticket, truth rows)); then the pump stops.
+    Every answer must equal its truth and the pump thread be joined."""
+    import threading
+
+    from repro_torch.core import encrypt as E
+    from repro_torch.db.serve_loop import OK
+    loop, tickets = traffic.loop, {}
+
+    def client(ks, vals, rng, seed, probe):
+        for i, v in enumerate(rng.choice(vals, 4)):
+            tk, want = probe(E.encrypt(ks, int(v), seed + i), int(v))
+            tickets[tk] = want
+    t0 = time.perf_counter()
+    loop.start(interval_s=0.001)
+    try:
+        threads = [threading.Thread(target=client, args=c) for c in clients]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        stop_at = time.monotonic() + 300.0
+        while (any(not loop.response(tk).done for tk in tickets)
+               and time.monotonic() < stop_at):
+            time.sleep(0.005)
+    finally:
+        loop.stop()
+    wall = time.perf_counter() - t0
+    ok = all(loop.response(tk).status == OK
+             and _on_host(loop.response(tk).result)
+             and np.array_equal(np.sort(loop.response(tk).result.row_ids),
+                                want)
+             for tk, want in tickets.items()) and loop._thread is None
+    traffic.drain()
+    return {"ok": ok, "requests": len(tickets), "wall_s": wall}
+
+
+def _overload(table, server, tenant, pool) -> dict:
+    """Admission control on a loop with a tenant cap of 4 over `server`:
+    a request already past its deadline is SHED, and of a burst of 8 the
+    5 past the cap are REJECTED; the 3 admitted answer exactly."""
+    from repro_torch.db import plan as P
+    from repro_torch.db.serve_loop import (OK, REJECTED, SHED,
+                                           AdmissionPolicy, ServeLoop)
+    tight = ServeLoop(policy=AdmissionPolicy(tenant_queue_cap=4), batch=8)
+    tight.register(table, server, tenants=(tenant,))
+    late = tight.submit(tenant, table, P.Eq("v", pool[0][0]),
+                        deadline=time.monotonic() - 1.0)
+    burst = [tight.submit(tenant, table, P.Eq("v", pool[i % 16][0]))
+             for i in range(8)]
+    res = tight.run_until_idle()
+    rejected = sum(res[t].status == REJECTED for t in burst)
+    ok = (rejected == 5 and res[late].status == SHED
+          and all(res[t].status == OK and np.array_equal(
+              np.sort(res[t].result.row_ids), pool[i % 16][1])
+              for i, t in enumerate(burst) if res[t].status != REJECTED))
+    return {"rejected": rejected, "late": res[late].status, "ok": ok,
+            "stats": dict(vars(tight.stats))}
+
+
+def _loop_kernel_checks(sources, pshapes, mshapes, launches, ks, seed,
+                        rate, ncalls=None) -> dict:
+    """The paper Eval and both multiplies against their plain versions at
+    every shape a loop path launched them at (`record_paper_shapes`,
+    `record_mul_shapes`), and `ntt_br` at each call `ncalls` recorded;
+    their calls reconciled with the launch counts.  `sources` maps the id
+    of each key's `cek_rev` (a tenant's, or its replica's on another
+    card) to (label, rows of that tenant's column on that card): each
+    key's paper shapes are checked on its own rows, with its card
+    current.  A shape whose key has no source fails the check."""
+    import torch
+    paper = {"equal": set(k[0] for k in pshapes) <= set(sources),
+             "shapes": []}
+    for rid, src in sources.items():
+        mine = {k: v for k, v in pshapes.items() if k[0] == rid}
+        if not mine:
+            continue
+        dev = src[1].c0.device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            got = check_paper_shapes({rid: src}, mine, seed, rate)
+        paper["equal"] &= got["equal"]
+        paper["shapes"] += got["shapes"]
+        paper.setdefault("floor", got["floor"])
+    muls = check_mul_shapes(ks, mshapes, seed + 1, rate)
+    m_calls = {k: sum(s["calls"] for s in muls["shapes"] if s["kind"] == k)
+               for k in ("key", "var")}
+    reconciled = (sum(s["calls"] for s in paper["shapes"])
+                  == launches["eval_coeff0_paper"]
+                  and m_calls["key"] == launches["negacyclic_mul_ntt"]
+                  and m_calls["var"] == launches["negacyclic_mul"])
+    out = {"paper_shapes": paper, "mul_shapes": muls}
+    equal = paper["equal"] and muls["equal"]
+    if ncalls is not None:
+        out["ntt_calls"] = check_ntt_calls(ncalls, launches, rate)
+        equal &= out["ntt_calls"]["equal"]
+        reconciled &= out["ntt_calls"]["launches_reconciled"]
+    return {**out, "equal": equal, "launches_reconciled": reconciled}
 
 
 def phase_loop(dev, rate) -> dict:
@@ -2395,16 +2631,13 @@ def phase_loop(dev, rate) -> dict:
     just before the path and read just after; the paper Eval and both
     multiplies are then held against their plain versions at every shape
     the path gave them, and their calls against the launch counts."""
-    import threading
-
     import torch
     from repro_torch import obs
     from repro_torch.core import encrypt as E
     from repro_torch.db import plan as P
     from repro_torch.db.index import SortedIndex
     from repro_torch.db.query_serve import QueryServer
-    from repro_torch.db.serve_loop import (OK, REJECTED, SHED,
-                                           AdmissionPolicy, ServeLoop)
+    from repro_torch.db.serve_loop import ServeLoop
     from repro_torch.db.table import Table
     from repro_torch.kernels import _build
 
@@ -2441,78 +2674,43 @@ def phase_loop(dev, rate) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_start
 
-    expect = {}                  # ticket -> check(result) -> bool
+    traffic = _Traffic(loop)
     w_all = [wvals]              # alice_w's rows in global-id order
-
-    def on_host(res):
-        return all(isinstance(getattr(res, f, np.zeros(0)), np.ndarray)
-                   for f in ("row_ids", "mask", "pairs"))
-
-    def same(ids):
-        return lambda r: np.array_equal(np.sort(r.row_ids), ids)
 
     def point_wave(t, n, deadline_s=None):
         dl = None if deadline_s is None else time.monotonic() + deadline_s
-        out = []
-        for i in range(n):
-            ct, truth = t["pool"][i % len(t["pool"])]
-            tk = loop.submit(t["name"], t["name"] + "_t", P.Eq("v", ct),
-                             deadline=dl)
-            expect[tk] = same(truth)
-            out.append(tk)
-        return out
+        return [traffic.submit(t["name"], t["name"] + "_t", P.Eq("v", ct),
+                               _rows_are(truth), deadline=dl)
+                for ct, truth in (t["pool"][i % 16] for i in range(n))]
 
     def bulk_wave(t, n):
-        out = []
-        for i in range(n):
-            lo, hi, truth = t["bounds"][i % len(t["bounds"])]
-            tk = loop.submit(t["name"], t["name"] + "_t",
-                             P.Range("v", lo, hi), klass="bulk")
-            expect[tk] = same(truth)
-            out.append(tk)
-        return out
+        return [traffic.submit(t["name"], t["name"] + "_t",
+                               P.Range("v", lo, hi), _rows_are(truth),
+                               klass="bulk")
+                for lo, hi, truth in (t["bounds"][i % 8] for i in range(n))]
 
     def insert_chunk(i):
         data = alice["rng"].integers(0, lim, LOOP_INSERT_CHUNK).astype(
             np.int64)
         start = sum(len(c) for c in w_all)
         w_all.append(data)
-        tk = loop.submit_insert("alice", "alice_w", {"v": data}, 7000 + i)
-        expect[tk] = lambda r, s=start: np.array_equal(
-            r.row_ids, np.arange(s, s + LOOP_INSERT_CHUNK))
+        traffic.write("insert", "alice", "alice_w", {"v": data}, 7000 + i,
+                      check=lambda r, s=start: np.array_equal(
+                          r.row_ids, np.arange(s, s + LOOP_INSERT_CHUNK)))
 
     def union_probe():
-        tk = loop.submit("alice", "alice_w", P.Eq("v", wprobe))
         truth = np.nonzero(np.concatenate(w_all) == wvals[0])[0]
-        expect[tk] = same(truth)
-        return tk
+        return traffic.submit("alice", "alice_w", P.Eq("v", wprobe),
+                              _rows_are(truth))
 
     def join_one(t):
-        tk = loop.submit_join(t["name"], t["name"] + "_t",
-                              P.Join(None, None, on="v"), t["right"],
-                              strategy="nested")
-        expect[tk] = lambda r: np.array_equal(
-            r.pairs[np.lexsort(r.pairs.T[::-1])], t["pairs"])
+        traffic.join(t["name"], t["name"] + "_t",
+                     P.Join(None, None, on="v"), t["right"],
+                     strategy="nested",
+                     check=lambda r: np.array_equal(
+                         r.pairs[np.lexsort(r.pairs.T[::-1])], t["pairs"]))
 
-    bad = []
-
-    def drain():
-        res = loop.run_until_idle()
-        for tk, r in res.items():
-            if tk not in expect:
-                continue
-            check = expect.pop(tk)
-            if r.status == OK and not (on_host(r.result)
-                                       and check(r.result)):
-                bad.append((tk, r.klass, "wrong answer"))
-            elif r.status not in (OK, REJECTED, SHED):
-                bad.append((tk, r.klass, r.status, r.error))
-            loop.forget(tk)
-        return res
-
-    def lat(res, tickets):
-        return [res[t].latency_s for t in tickets if res[t].status == OK]
-
+    drain = traffic.drain
     walls = {}
     t0 = time.perf_counter()
     # ---- warm-up: every pow2 bucket, the join grid, one delta cycle ------
@@ -2549,7 +2747,7 @@ def phase_loop(dev, rate) -> dict:
             insert_chunk(50 + r)
             chunks += 1
         tks = point_wave(alice, 8) + point_wave(bob, 8)
-        iso_lat += lat(drain(), tks)
+        iso_lat += _latencies(drain(), tks)
     iso = _pcts(iso_lat)
     flush_writes(90)
     walls["isolated_s"] = time.perf_counter() - t0
@@ -2570,9 +2768,9 @@ def phase_loop(dev, rate) -> dict:
             utks.append(union_probe())
             chunks += 1
         res = drain()
-        mixed_point += lat(res, ptks)
-        mixed_bulk += lat(res, btks)
-        union_lat += lat(res, utks)
+        mixed_point += _latencies(res, ptks)
+        mixed_bulk += _latencies(res, btks)
+        union_lat += _latencies(res, utks)
     steady_s = time.perf_counter() - t0
     served = loop.stats.served - served0
     shed_rate = (loop.stats.shed - shed0) / max(
@@ -2588,83 +2786,44 @@ def phase_loop(dev, rate) -> dict:
     for i in range(3):
         bulk_wave(alice, 1)
         if i == 1:
-            poison.append(loop.submit("alice", "alice_t",
-                                      P.Eq("nope", alice["pool"][0][0]),
-                                      klass="bulk"))
+            poison.append(traffic.submit(
+                "alice", "alice_t", P.Eq("nope", alice["pool"][0][0]),
+                klass="bulk"))
     res = drain()
     poison_ok = (res[poison[0]].status == "FAILED"
                  and "nope" in res[poison[0]].error)
     shapes_fault = loop.batch_shapes[-5:]
 
     # ---- the always-on mode: a daemon pump, two client threads ----------
-    threaded = {}
-
-    def client(t, seed):
-        vals = t["vals"]
-        for i, v in enumerate(t["rng"].choice(vals, 4)):
-            ct = E.encrypt(t["ks"], int(v), seed + i)
-            tk = loop.submit(t["name"], t["name"] + "_t", P.Eq("v", ct))
-            threaded[tk] = np.nonzero(vals == v)[0]
-    t0 = time.perf_counter()
-    loop.start(interval_s=0.001)
-    try:
-        threads = [threading.Thread(target=client, args=(t, 9000 + 10 * k))
-                   for k, t in enumerate(tenants)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        stop_at = time.monotonic() + 300.0
-        while (any(not loop.response(tk).done for tk in threaded)
-               and time.monotonic() < stop_at):
-            time.sleep(0.005)
-    finally:
-        loop.stop()
-    walls["threaded_s"] = time.perf_counter() - t0
-    threaded_ok = all(
-        loop.response(tk).status == OK
-        and on_host(loop.response(tk).result)
-        and np.array_equal(np.sort(loop.response(tk).result.row_ids), want)
-        for tk, want in threaded.items()) and loop._thread is None
+    def probe(t):
+        def submit(ct, v):
+            want = np.nonzero(t["vals"] == v)[0]
+            return traffic.submit(t["name"], t["name"] + "_t",
+                                  P.Eq("v", ct), _rows_are(want)), want
+        return submit
+    threaded = _threaded_round(traffic, [
+        (t["ks"], t["vals"], t["rng"], 9000 + 10 * k, probe(t))
+        for k, t in enumerate(tenants)])
+    walls["threaded_s"] = threaded["wall_s"]
     stats = dict(vars(loop.stats))
     launches = dict(_build.LAUNCHES)
     pstop()
     mstop()
 
     # ---- overload: admission control rejects and sheds explicitly -------
-    tight = ServeLoop(policy=AdmissionPolicy(tenant_queue_cap=4), batch=8)
-    tight.register("alice_t", QueryServer(
+    overload = _overload("alice_t", QueryServer(
         aks, alice["table"], indexes={"v": alice["index"]}, batch=8),
-        tenants=("alice",))
-    late = tight.submit("alice", "alice_t",
-                        P.Eq("v", alice["pool"][0][0]),
-                        deadline=time.monotonic() - 1.0)
-    burst = [tight.submit("alice", "alice_t",
-                          P.Eq("v", alice["pool"][i % 16][0]))
-             for i in range(8)]
-    tres = tight.run_until_idle()
-    rejected = sum(tres[t].status == REJECTED for t in burst)
-    overload_ok = (rejected == 5 and tres[late].status == SHED
-                   and all(tres[t].status == OK and np.array_equal(
-                       np.sort(tres[t].result.row_ids),
-                       alice["pool"][i % 16][1])
-                       for i, t in enumerate(burst)
-                       if tres[t].status != REJECTED))
+        "alice", alice["pool"])
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     obs.disable()
 
     # ---- each kernel at every shape the path gave it, on tenants' rows ---
-    sources = {id(t["ks"].cek_rev): (t["name"], t["table"].columns["v"])
-               for t in tenants}
-    paper = check_paper_shapes(sources, pshapes, SEED + 50, rate)
-    muls = check_mul_shapes(aks, mshapes, SEED + 51, rate)
-    m_calls = {k: sum(s["calls"] for s in muls["shapes"] if s["kind"] == k)
-               for k in ("key", "var")}
-    reconciled = (sum(s["calls"] for s in paper["shapes"])
-                  == launches["eval_coeff0_paper"]
-                  and m_calls["key"] == launches["negacyclic_mul_ntt"]
-                  and m_calls["var"] == launches["negacyclic_mul"])
+    kernels = _loop_kernel_checks(
+        {id(t["ks"].cek_rev): (t["name"], t["table"].columns["v"])
+         for t in tenants}, pshapes, mshapes, launches, aks, SEED + 50,
+        rate)
+    bad = traffic.bad
     out = {
         "phase": "loop", "profile": LOOP_PROFILE, "mode": "paper",
         "rows_arg": rows, "rows": n_rows, "rounds": LOOP_ROUNDS,
@@ -2687,12 +2846,13 @@ def phase_loop(dev, rate) -> dict:
         "write_chunks": chunks, "warmup_compactions": compactions,
         "exact": not bad, "wrong": bad[:5],
         "poisoned_failed_alone": poison_ok, "fault_batches": shapes_fault,
-        "threaded_exact": threaded_ok, "threaded_requests": len(threaded),
-        "overload": {"rejected": rejected,
-                     "late": tres[late].status, "ok": overload_ok},
+        "threaded_exact": threaded["ok"],
+        "threaded_requests": threaded["requests"],
+        "overload": {k: overload[k] for k in ("rejected", "late", "ok")},
         "loop_stats": stats, "launches": launches, "peak_mem_bytes": peak,
-        "launches_reconciled": reconciled, "paper_shapes": paper,
-        "mul_shapes": muls,
+        "launches_reconciled": kernels["launches_reconciled"],
+        "paper_shapes": kernels["paper_shapes"],
+        "mul_shapes": kernels["mul_shapes"],
     }
     emit(out)
     require(out["index_sorted"], "a tenant's index is not sorted")
@@ -2708,13 +2868,672 @@ def phase_loop(dev, rate) -> dict:
     require(retrace_delta == 0,
             f"{retrace_delta} new launch signatures in the steady mix: "
             f"{signatures}")
-    require(threaded_ok, "the always-on round answered wrong")
-    require(overload_ok, f"overload: {out['overload']}")
-    require(paper["equal"] and muls["equal"],
-            "a kernel != plain at a shape of the loop path")
-    require(reconciled, f"launches {launches} != the recorded calls")
+    require(threaded["ok"], "the always-on round answered wrong")
+    require(overload["ok"], f"overload: {out['overload']}")
+    require(kernels["equal"], "a kernel != plain at a shape of the loop path")
+    require(kernels["launches_reconciled"],
+            f"launches {launches} != the recorded calls")
     require(all(launches[k] > 0 for k in LOOP_KERNELS),
             f"a kernel never launched on the loop path: {launches}")
+    return out
+
+
+class _Plain:
+    """The plaintext of a served table's global row ids (`v`, `w`, alive)
+    as the writes admitted so far leave it, and the truth of each plan
+    the sharded loop phase sends.  `epoch` counts the writes, so (plan,
+    epoch) names one answer."""
+
+    def __init__(self, data):
+        self.v, self.w = data["v"].copy(), data["w"].copy()
+        self.alive = np.ones(len(self.v), bool)
+        self.epoch = 0
+
+    def insert(self, v, w) -> np.ndarray:
+        ids = np.arange(len(self.v), len(self.v) + len(v))
+        self.v = np.concatenate([self.v, v])
+        self.w = np.concatenate([self.w, w])
+        self.alive = np.concatenate([self.alive, np.ones(len(v), bool)])
+        self.epoch += 1
+        return ids
+
+    def delete(self, rows) -> int:
+        newly = int(self.alive[rows].sum())
+        self.alive[rows] = False
+        self.epoch += 1
+        return newly
+
+    def eq(self, x) -> np.ndarray:
+        return np.nonzero((self.v == x) & self.alive)[0]
+
+    def range(self, col, lo, hi) -> np.ndarray:
+        x = getattr(self, col)
+        return np.nonzero((x >= lo) & (x <= hi) & self.alive)[0]
+
+    def top(self, lo, hi, k) -> list:
+        """The k largest `v` (with repeats) where lo <= w <= hi."""
+        sel = self.range("w", lo, hi)
+        return sorted(self.v[sel].tolist(), reverse=True)[:k]
+
+
+def _device_allocs() -> int:
+    """The caching allocator's `cudaMalloc` calls so far, summed over
+    the visible cards (0 without a card)."""
+    import torch
+    if not torch.cuda.is_available():
+        return 0
+    return sum(torch.cuda.memory_stats(c).get("num_device_alloc", 0)
+               for c in range(torch.cuda.device_count()))
+
+
+@contextlib.contextmanager
+def _gc_pauses():
+    """Python's cyclic collections inside the block, each [start, end,
+    generation] on the loop's clock (`time.monotonic`), from whichever
+    thread ran them."""
+    pauses = []
+
+    def seen(phase, info):
+        if phase == "start":
+            pauses.append([time.monotonic(), None, info["generation"]])
+        elif pauses and pauses[-1][1] is None:
+            pauses[-1][1] = time.monotonic()
+    gc.callbacks.append(seen)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(seen)
+        for p in pauses:
+            if p[1] is None:
+                p[1] = p[0]
+
+
+def _loop_shard_script(alice) -> dict:
+    """What phase 11a sends besides alice's probe pool, encrypted once
+    and shared by every layout: 8 Ranges on `w`, the TopK 8 (by `v`,
+    where `w` lies in its 30th-70th percentiles), the write wave's rows
+    (4 chunks of LOOP_INSERT_CHUNK, each with an Eq probe of its first
+    value), its delete (a base row and an inserted one) and its update
+    (one row, with its probe)."""
+    from repro_torch.core import encrypt as E
+    ks, w = alice["ks"], alice["data"]["w"]
+    rng = np.random.default_rng(SEED + 70)
+    lim, n = ks.params.max_operand // 2, len(w)
+
+    def enc(v, seed):
+        return E.encrypt(ks, int(v), seed)
+    spans = [tuple(int(x) for x in np.sort(rng.choice(w, 2, replace=False)))
+             for _ in range(8)]
+    wb = [(enc(lo, SEED + 300 + i), enc(hi, SEED + 400 + i), lo, hi)
+          for i, (lo, hi) in enumerate(spans)]
+    top = tuple(int(x) for x in np.percentile(w, [30, 70]))
+    chunks = [{"v": rng.integers(0, lim, LOOP_INSERT_CHUNK),
+               "w": rng.integers(0, lim, LOOP_INSERT_CHUNK)}
+              for _ in range(LOOP_COMPACT_AT // LOOP_INSERT_CHUNK)]
+    upd = {"v": rng.integers(0, lim, 1), "w": rng.integers(0, lim, 1)}
+    return {"w_bounds": wb,
+            "topk": (enc(top[0], SEED + 500), enc(top[1], SEED + 501),
+                     *top),
+            "chunks": [(c, enc(c["v"][0], SEED + 510 + i))
+                       for i, c in enumerate(chunks)],
+            "dead": [0, n + 3], "update": (upd, [5],
+                                           enc(upd["v"][0], SEED + 520))}
+
+
+def _same_answer(a, b) -> bool:
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _loop_shard_traffic(traffic, table, alice, script, store) -> dict:
+    """Phase 11a's stages against one registered table, as closures over
+    it: each sends a stage and returns its tickets; every answer is held
+    to the plaintext (`_Plain`, which replays the stages' writes) and
+    kept in `store` under (plan, epoch): its sorted row ids, or the
+    TopK's values."""
+    from repro_torch.db import plan as P
+    rows = _Plain(alice["data"])
+
+    def keep(key, want, values=False):
+        v = rows.v
+
+        def check(r):
+            got = v[r.row_ids].tolist() if values else np.sort(r.row_ids)
+            store[key] = got
+            return _same_answer(got, want)
+        return check
+
+    def probe(tenant, ct, x, deadline=None):
+        """An Eq on `v` = x; returns (ticket, truth rows)."""
+        want = rows.eq(x)
+        return traffic.submit(tenant, table, P.Eq("v", ct),
+                              keep(("eq", x, rows.epoch), want),
+                              deadline=deadline), want
+
+    def point(tenant, i, deadline_s=None):
+        dl = None if deadline_s is None else time.monotonic() + deadline_s
+        return probe(tenant, alice["pool"][i % 16][0],
+                     int(alice["picks"][i % 16]), dl)[0]
+
+    def w_range(tenant, i):
+        lo_ct, hi_ct, lo, hi = script["w_bounds"][i % 8]
+        return traffic.submit(tenant, table, P.Range("w", lo_ct, hi_ct),
+                              keep(("w", lo, hi, rows.epoch),
+                                   rows.range("w", lo, hi)), klass="bulk")
+
+    def topk(tenant):
+        lo_ct, hi_ct, lo, hi = script["topk"]
+        q = P.Query(where=P.Range("w", lo_ct, hi_ct),
+                    top_k=P.TopK("v", SHARD_TOPK))
+        return traffic.submit(tenant, table, q, keep(
+            ("top", lo, hi, rows.epoch), rows.top(lo, hi, SHARD_TOPK),
+            values=True))
+
+    def wave(per_tenant, n_bulk=0, deadline_s=None, with_topk=False):
+        """Points from alice and bob, their bulk Ranges on `w`, and a
+        TopK from bob: one drain's worth.  Returns (points, bulk)."""
+        pts = [point(t, i, deadline_s) for t in ("alice", "bob")
+               for i in range(per_tenant)]
+        blk = [w_range(t, i) for t in ("alice", "bob")
+               for i in range(n_bulk)]
+        if with_topk:
+            blk.append(topk("bob"))
+        return pts, blk
+
+    def writes():
+        """The write wave, sent before one drain: LOOP_COMPACT_AT rows
+        in chunks (the last reaches the compaction threshold, so
+        compaction runs while the queries behind it wait), each chunk
+        followed by an Eq probe of its first value and a Range on `w`;
+        then the delete, the update and reads after them.  Returns the
+        inserts' tickets."""
+        ins = []
+        for i, (data, ct) in enumerate(script["chunks"]):
+            ids = rows.insert(data["v"], data["w"])
+            ins.append(traffic.write(
+                "insert", "alice", table, data, 7100 + i,
+                check=lambda r, ids=ids: np.array_equal(r.row_ids, ids)))
+            probe("alice", ct, int(data["v"][0]))
+            w_range("bob", i)
+        dead = script["dead"]
+        n = rows.delete(dead)
+        traffic.write("delete", "bob", table, dead,
+                      check=lambda r, n=n: r.deleted == n)
+        data, gone, ct = script["update"]
+        rows.alive[gone] = False            # one write: tombstone + insert
+        ids = rows.insert(data["v"], data["w"])
+        traffic.write("update", "bob", table, gone, data, 7200,
+                      check=lambda r, ids=ids: np.array_equal(r.row_ids,
+                                                              ids))
+        probe("alice", ct, int(data["v"][0]))
+        point("alice", 0)
+        w_range("bob", 4)
+        topk("bob")
+        return ins
+
+    def poisoned():
+        """A plan naming no column, between two good bulk Ranges; returns
+        its ticket."""
+        w_range("alice", 5)
+        tk = traffic.submit("alice", table,
+                            P.Eq("nope", alice["pool"][0][0]), klass="bulk")
+        w_range("alice", 6)
+        return tk
+
+    return {"rows": rows, "wave": wave, "writes": writes,
+            "poisoned": poisoned, "probe": probe}
+
+
+def _loop_shard_run(alice, script, spec, rate, with_plain) -> dict:
+    """One layout of phase 11a: alice's rows (`v`, `w`) encrypted straight
+    into a ShardedTable under `spec` (the same seed in every layout, so
+    the same ciphertexts), its ShardedIndex on `v`, a ShardedQueryServer
+    with `compact_threshold` behind a ServeLoop(batch=8) (`with_plain`:
+    the plain tenant's QueryServer over the same rows registered beside
+    it; the stages whose plans or epochs no other stage has are replayed
+    there after the sharded ones), then the traffic: warm-up, 64
+    isolated points, the steady mix, a join (rejected at admission), the
+    write wave (compaction under queued queries), a poisoned plan in a
+    shared drain, one traced steady round, the always-on round with two
+    client threads, the overload.  Launch counts are zeroed just before
+    and read just after; every raw scan value is recorded (sha256); then
+    each kernel against its plain version at every shape the run gave
+    it.  Returns the record, its answers by (plan, epoch) and its raw
+    records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import db, obs
+    from repro_torch.db import plan as P
+    from repro_torch.db.serve_loop import FAILED, POINT, REJECTED, ServeLoop
+    from repro_torch.db.shard import executor as SX
+    from repro_torch.kernels import _build
+
+    ks, home = alice["ks"], alice["ks"].device
+    cards = range(torch.cuda.device_count() if home.type == "cuda" else 0)
+    walls, peaks, comp = {}, {}, []
+
+    def sync_s(t0):
+        for c in cards:
+            torch.cuda.synchronize(c)
+        return time.perf_counter() - t0
+
+    def peak(part):
+        """Each card's peak since the last part (then reset)."""
+        peaks[part] = {}
+        for c in cards:
+            torch.cuda.synchronize(c)
+            peaks[part][f"cuda:{c}"] = torch.cuda.max_memory_allocated(c)
+            torch.cuda.reset_peak_memory_stats(c)
+
+    gc.collect()
+    for c in cards:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(c)
+    sync_s(0.0)
+    _build.reset_launch_counts()
+    pshapes, pstop = record_paper_shapes()
+    mshapes, mstop = record_mul_shapes()
+    ncalls, nstop = record_calls(("ntt_br",))
+    raw, raw_stop = record_raw(SX, "sharded_fused_eval")
+    obs.enable()                 # launch accounting + serve.* counters
+    obs.REGISTRY.reset()
+    obs.jitwatch.reset()
+    t_run = time.perf_counter()
+    try:
+        # ---- the sharded tenant (and the plain one beside it) -----------
+        t0 = time.perf_counter()
+        st = db.ShardedTable.from_arrays(ks, "alice_s", alice["data"],
+                                         SEED + 71, spec=spec)
+        walls["encrypt_s"] = sync_s(t0)
+        t0 = time.perf_counter()
+        idx = db.ShardedIndex.build(ks, st, "v")
+        walls["index_build_s"] = sync_s(t0)
+        index_sorted = _shard_index_sorted(alice["vals"], st, idx)
+        server = db.ShardedQueryServer(ks, st, indexes={"v": idx}, batch=8,
+                                       compact_threshold=LOOP_COMPACT_AT)
+        del idx                 # the server's index dict holds it alone
+        geometry = {"shard_rows": st.shard_rows.tolist(),
+                    "block": st.n_padded_per_shard,
+                    "slabs": st.columns["v"].c0.num_slabs}
+        loop = ServeLoop(batch=8)
+        loop.register("alice_s", server, tenants=("alice", "bob"))
+        traffic = _Traffic(loop)
+        store, pstore = {}, {}
+        sh = _loop_shard_traffic(traffic, "alice_s", alice, script, store)
+        pl = None
+        if with_plain:
+            loop.register("alice_p", db.QueryServer(
+                ks, alice["table"], indexes={"v": alice["index"]}, batch=8),
+                tenants=("alice", "bob"))
+            pl = _loop_shard_traffic(traffic, "alice_p", alice, script,
+                                     pstore)
+
+        def accounted() -> dict:
+            """What each card should hold: the tenants' column stacks,
+            delta runs and indexes (all else is a few MiB)."""
+            by = {f"cuda:{c}": 0 for c in cards}
+            t = alice["table"]                 # resident in every layout
+            cts = [server.indexes["v"]._sorted, alice["index"].sorted_ct]
+            tabs = ([d for d in st.deltas if d is not None] + [t]
+                    + ([t.delta] if t.has_delta else []))
+            halves = [h for ct in st.columns.values() for h in ct]
+            tensors = ([x for h in halves for x in h.slabs]
+                       + [x for ct in cts for x in ct]
+                       + [x for t in tabs for ct in t.columns.values()
+                          for x in ct])
+            for x in tensors:
+                if x.is_cuda:
+                    by[f"cuda:{x.device.index}"] += x.nbytes
+            return by
+
+        inner_compact = server.compact
+
+        def compact():
+            """The server's compaction between two synchronizes, with
+            what is queued behind it and what stays allocated after."""
+            sync_s(0.0)              # the writes before it, finished
+            t0 = time.perf_counter()
+            stats = inner_compact()
+            dt = sync_s(t0)
+            comp.append({"s": dt, "queued": loop.queue_depth(),
+                         "n_delta": stats.n_delta,
+                         "merge_compares": stats.merge_compares,
+                         "block_after": st.n_padded_per_shard,
+                         "live_bytes": {f"cuda:{c}":
+                                        torch.cuda.memory_allocated(c)
+                                        for c in cards},
+                         "accounted_bytes": accounted()})
+            return stats
+        server.compact = compact
+        inner_insert, insert_walls, insert_allocs = st.insert, [], []
+
+        def insert(*args, **kw):
+            """The table's insert between two synchronizes, and the
+            allocator's `cudaMalloc` calls during it."""
+            sync_s(0.0)
+            a0, t0 = _device_allocs(), time.perf_counter()
+            ids = inner_insert(*args, **kw)
+            insert_walls.append(sync_s(t0))
+            insert_allocs.append(_device_allocs() - a0)
+            return ids
+        st.insert = insert
+        peak("setup")
+
+        def stage(name, *args, **kw):
+            """A stage on the sharded tenant, drained; then (with the
+            plain tenant) the same there, drained apart and untimed."""
+            out = sh[name](*args, **kw)
+            res = traffic.drain()
+            if pl is not None:
+                pl[name](*args, **kw)
+                traffic.drain()
+            return out, res
+
+        # ---- warm-up: every pow2 bucket of both classes, the TopK -------
+        t0 = time.perf_counter()
+        for n in (8, 4, 2, 1):
+            stage("wave", n)
+        for n in (4, 2, 1):
+            stage("wave", 0, n)
+        stage("wave", 0, 4, with_topk=True)
+        walls["warmup_s"] = sync_s(t0)
+
+        # ---- 64 isolated point Eqs on the indexed v ---------------------
+        t0 = time.perf_counter()
+        iso_lat, iso_klass = [], True
+        for _ in range(4):
+            pts, _ = sh["wave"](8)
+            res = traffic.drain()
+            iso_lat += _latencies(res, pts)
+            iso_klass &= all(res[t].klass == POINT for t in pts)
+        walls["isolated_s"] = sync_s(t0)
+        iso = _pcts(iso_lat)
+        peak("reads")
+
+        # ---- steady mix: points with deadlines, bulk Ranges, a TopK -----
+        retr0 = obs.bench_fields()["jit_retraces"]
+        served0 = loop.stats.served
+        mixed_point, mixed_bulk = [], []
+        t0 = time.perf_counter()
+        for _ in range(LOOP_ROUNDS):
+            pts, blk = sh["wave"](8, 4, 600.0, with_topk=True)
+            res = traffic.drain()
+            mixed_point += _latencies(res, pts)
+            mixed_bulk += _latencies(res, blk)
+        walls["steady_s"] = sync_s(t0)
+        steady_served = loop.stats.served - served0
+        retrace_delta = obs.bench_fields()["jit_retraces"] - retr0
+        signatures = obs.jit_signatures()
+        mix, blk_p = _pcts(mixed_point), _pcts(mixed_bulk)
+
+        # ---- a join against the sharded tenant: rejected at admission ---
+        before = dict(vars(loop.stats))
+        depth, shapes0 = loop.queue_depth(), len(loop.batch_shapes)
+        jt = traffic.join("bob", "alice_s", P.Join(None, None, on="v"),
+                          alice["table"])
+        jr = loop.response(jt)
+        join_ok = (jr.status == REJECTED
+                   and "does not support joins" in jr.error
+                   and vars(loop.stats) == dict(
+                       before, submitted=before["submitted"] + 1,
+                       rejected=before["rejected"] + 1)
+                   and loop.queue_depth() == depth
+                   and len(loop.batch_shapes) == shapes0)
+        traffic.drain()
+
+        # ---- the write wave: compaction while queries wait --------------
+        t0 = time.perf_counter()
+        with _gc_pauses() as pauses:
+            ins, res = stage("writes")
+        walls["write_wave_s"] = sync_s(t0)
+        peak("writes")
+        service = [(res[t].start_t, res[t].done_t) for t in ins]
+        walls["insert_service_s"] = [b - a for a, b in service]
+        walls["insert_s"] = insert_walls[:len(ins)]
+        insert_driver_allocs = insert_allocs[:len(ins)]
+        insert_s = sum(b - a for a, b in service) - sum(c["s"] for c in comp)
+        gc_write = {"collections": len(pauses),
+                    "generations": [g for *_, g in pauses],
+                    "s": sum(b - a for a, b, _ in pauses),
+                    "in_inserts_s": [sum(max(0.0, min(b, d) - max(a, s0))
+                                         for a, b, _ in pauses)
+                                     for s0, d in service]}
+
+        # ---- a poisoned plan in a shared drain ---------------------------
+        failed0 = loop.stats.failed
+        bad_tk, res = stage("poisoned")
+        poison_ok = (res[bad_tk].status == FAILED
+                     and "nope" in res[bad_tk].error
+                     and loop.stats.failed - failed0 == 1 + with_plain)
+
+        # ---- one steady round under torch.profiler (busy share) ---------
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if len(cards) else [])
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            sh["wave"](8, 4, 600.0, with_topk=True)
+            traffic.drain()
+            walls["traced_round_s"] = sync_s(t0)
+        busy = _device_summary(prof, walls["traced_round_s"])
+        del prof
+        if pl is not None:
+            pl["wave"](8, 4, 600.0, with_topk=True)
+            traffic.drain()
+
+        # ---- the always-on round: a daemon pump, two client threads -----
+        rows, sent = sh["rows"], []
+
+        def client_probe(tenant):
+            def probe(ct, x):
+                sent.append((tenant, ct, x))
+                return sh["probe"](tenant, ct, x)
+            return probe
+        threaded = _threaded_round(traffic, [
+            (ks, rows.v[rows.alive], np.random.default_rng(SEED + 80 + k),
+             9100 + 10 * k, client_probe(t))
+            for k, t in enumerate(("alice", "bob"))])
+        walls["threaded_s"] = threaded["wall_s"]
+        if pl is not None:
+            for tenant, ct, x in sent:
+                pl["probe"](tenant, ct, x)
+            traffic.drain()
+        stats = dict(vars(loop.stats))
+        tenants = traffic.reconciled()
+        bad = traffic.bad
+        launches = dict(_build.LAUNCHES)
+    finally:
+        pstop()
+        mstop()
+        nstop()
+        walls["raw_hash_s"] = raw_stop()
+    overload = _overload("alice_s", db.ShardedQueryServer(
+        ks, st, indexes=server.indexes, batch=8), "alice",
+        [(ct, rows.eq(int(x))) for (ct, _), x in zip(alice["pool"],
+                                                     alice["picks"])])
+    obs.disable()
+    walls["run_s"] = sync_s(t_run)
+    peak("end")
+    after = {"shard_rows": st.shard_rows.tolist(),
+             "block": st.n_padded_per_shard, "n_delta": st.n_delta}
+    del st, server, loop, traffic, sh, pl
+    gc.collect()
+    for c in cards:
+        torch.cuda.empty_cache()
+
+    # ---- each kernel at every shape the run gave it ----------------------
+    col = alice["table"].columns["v"]
+    n_sp = geometry["block"]
+    sources = {id(ks.cek_rev): ("alice", col)}
+    for dev in (spec.mesh.distinct if spec.mesh is not None else ()):
+        if dev != home:
+            sources[id(ks.replica(dev).cek_rev)] = (
+                f"alice@{dev}", type(col)(col.c0[:n_sp].to(dev),
+                                          col.c1[:n_sp].to(dev)))
+    kernels = _loop_kernel_checks(sources, pshapes, mshapes, launches, ks,
+                                  SEED + 72, rate, ncalls=ncalls)
+    del sources, ncalls
+    plain_equal = None
+    if with_plain:
+        plain_equal = {"answers": len(store),
+                       "missing": len(set(store) - set(pstore)),
+                       "differ": sum(not _same_answer(v, pstore[k])
+                                     for k, v in store.items()
+                                     if k in pstore)}
+        plain_equal["ok"] = (plain_equal["missing"] == 0
+                             and plain_equal["differ"] == 0)
+    return {
+        "d": spec.mesh_devices,
+        "cards": [str(x) for x in (spec.mesh.distinct if spec.mesh
+                                   else [home])],
+        "geometry": geometry, "after": after, "index_sorted": index_sorted,
+        "walls": walls,
+        "point_isolated_ms": {"p50": iso[0], "p99": iso[1],
+                              "n": len(iso_lat)},
+        "point_mixed_ms": {"p50": mix[0], "p99": mix[1],
+                           "n": len(mixed_point)},
+        "p99_vs_isolated": mix[1] / iso[1],
+        "bulk_mixed_ms": {"p50": blk_p[0], "p99": blk_p[1],
+                          "n": len(mixed_bulk)},
+        "steady_qps": steady_served / walls["steady_s"],
+        "isolated_classified_point": iso_klass,
+        "jit_retraces_delta": retrace_delta,
+        "launch_signatures": {k: len(v) for k, v in signatures.items()},
+        "inserts_per_s": LOOP_COMPACT_AT / insert_s,
+        "compaction": comp, "gc_in_write_wave": gc_write,
+        "insert_driver_allocs": insert_driver_allocs,
+        "compacted_under_load": len(comp) == 1 and comp[0]["queued"] > 0,
+        "busy": busy, "peaks": peaks,
+        "peak_mem_bytes": {c: max(p[c] for p in peaks.values())
+                           for c in next(iter(peaks.values()))},
+        "exact": not bad, "wrong": bad[:5],
+        "join_rejected": join_ok, "poisoned_failed_alone": poison_ok,
+        "threaded_exact": threaded["ok"],
+        "threaded_requests": threaded["requests"],
+        "overload": {k: overload[k] for k in ("rejected", "late", "ok")},
+        "tenants": tenants, "loop_stats": stats, "plain_equal": plain_equal,
+        "answers": store, "raw": raw, "launches": launches, **kernels}
+
+
+def phase_loop_shard(dev, rate) -> dict:
+    """Phase 11a: the serving loop in front of a sharded table.  Alice's
+    LOOP_ROWS-argument tenant (57,344 live rows, seed 11, paper keys as
+    phase 11 makes them) with an unindexed column `w` beside `v`, as the
+    plain tenant (a QueryServer over its Table and SortedIndex), and in
+    SHARDS shards of LOOP_ROWS // SHARDS slots behind one
+    ServeLoop(batch=8), run in three layouts: (a) unplaced, with the
+    plain tenant registered beside it; (b) placed on `[cuda:0] * 4`;
+    (c) placed on cuda:0-3 where four cards are visible, else recorded
+    as skipped.  Each layout runs `_loop_shard_run`'s traffic.  Every
+    answer equals the plaintext and, by (plan, epoch), the plain
+    tenant's; (b)'s and (c)'s answers and raw scan values (sha256) equal
+    (a)'s; per tenant, submitted = ok + rejected + shed + failed; no new
+    launch signature in the steady mix; compaction ran under queued
+    queries and left no old stack allocated; every kernel shape equal
+    to plain, launches reconciled.  Point p99 mixed against isolated is
+    printed, not gated."""
+    import torch
+
+    from repro_torch import db
+
+    rows = LOOP_ROWS
+    n_rows = rows - max(rows // 8, 4 * LOOP_COMPACT_AT)
+    count = torch.cuda.device_count() if torch.device(dev).type == "cuda" \
+        else 0
+    t0 = time.perf_counter()
+    alice = _loop_tenant(dev, "alice", 11, n_rows, rows, with_w=True)
+    script = _loop_shard_script(alice)
+    setup_s = time.perf_counter() - t0
+    cuda = [torch.device("cuda", j) if count else torch.device(dev)
+            for j in range(SHARDS)]
+    layouts = [("unplaced", db.ShardSpec.create(SHARDS, use_mesh=False)),
+               ("placed", db.ShardSpec.create(SHARDS,
+                                              devices=[cuda[0]] * SHARDS))]
+    if count >= SHARDS:
+        layouts.append(("four_cards",
+                        db.ShardSpec.create(SHARDS, devices=cuda)))
+    runs = {}
+    for name, spec in layouts:
+        run = _loop_shard_run(alice, script, spec, rate,
+                              with_plain=name == "unplaced")
+        emit({"phase": "loop_shard_run", "layout": name,
+              **{k: v for k, v in run.items()
+                 if k not in ("answers", "raw")}})
+        runs[name] = run
+    flat = runs["unplaced"]
+    same = {name: {"raw_equal": r["raw"] == flat["raw"],
+                   "answers_equal": r["answers"].keys()
+                   == flat["answers"].keys() and all(
+                       _same_answer(r["answers"][k], flat["answers"][k])
+                       for k in flat["answers"])}
+            for name, r in runs.items() if name != "unplaced"}
+    four = ({"cards": [str(c) for c in cuda]} if count >= SHARDS else
+            {"skipped": f"{count} card(s) visible: layout (c) places the "
+                        f"{SHARDS} shards on cuda:0-{SHARDS - 1}, which "
+                        f"needs {SHARDS} cards"})
+
+    def stale(r):
+        """Bytes a card holds after compaction beyond the tenants'
+        stacks, deltas and indexes (an old stack would be GiBs)."""
+        return max((c["live_bytes"][k] - c["accounted_bytes"][k]
+                    for c in r["compaction"] for k in c["live_bytes"]),
+                   default=0)
+    out = {
+        "phase": "loop_shard", "profile": LOOP_PROFILE, "mode": "paper",
+        "rows": n_rows, "shards": SHARDS, "slots": rows // SHARDS,
+        "setup_s": setup_s, "plain_index_build_s": alice["index_build_s"],
+        "plain_encrypt_s": alice["encrypt_s"],
+        "raw_records": len(flat["raw"]), "layouts_equal": same,
+        "four_cards": four,
+        "runs": {name: {k: r[k] for k in (
+            "d", "cards", "walls", "point_isolated_ms", "point_mixed_ms",
+            "p99_vs_isolated", "bulk_mixed_ms", "steady_qps",
+            "inserts_per_s", "compaction", "gc_in_write_wave",
+            "insert_driver_allocs", "busy", "peak_mem_bytes",
+            "exact", "plain_equal", "tenants", "launches",
+            "launches_reconciled")} | {"stale_bytes": stale(r)}
+            for name, r in runs.items()}}
+    emit(out)
+    for name, r in runs.items():
+        require(r["index_sorted"], f"the ShardedIndex is not sorted ({name})")
+        require(r["exact"], f"a sharded loop answer diverged from the "
+                f"plaintext ({name}): {r['wrong']}")
+        require(r["isolated_classified_point"],
+                f"an isolated Eq on the indexed v ran as bulk ({name})")
+        require(r["jit_retraces_delta"] == 0,
+                f"{r['jit_retraces_delta']} new launch signatures in the "
+                f"steady mix ({name}): {r['launch_signatures']}")
+        require(r["compacted_under_load"],
+                f"compaction did not run once under queued queries "
+                f"({name}): {r['compaction']}")
+        require(stale(r) < 2 ** 31, f"{stale(r)} bytes beyond the tenants' "
+                f"stacks after compaction ({name})")
+        require(r["join_rejected"], f"the join was not rejected at "
+                f"admission with the counters unchanged ({name})")
+        require(r["poisoned_failed_alone"],
+                f"the poisoned plan did not fail alone ({name})")
+        require(r["threaded_exact"], f"the always-on round answered wrong "
+                f"({name})")
+        require(r["overload"]["ok"], f"overload ({name}): {r['overload']}")
+        require(all(t["ok"] for t in r["tenants"].values()),
+                f"per-tenant counts do not reconcile ({name}): "
+                f"{r['tenants']}")
+        require(r["equal"], f"a kernel != plain at a shape of the sharded "
+                f"loop ({name})")
+        require(r["launches_reconciled"], f"launches {r['launches']} != "
+                f"the recorded calls ({name})")
+        require(all(r["launches"][k] > 0 for k in LOOP_SHARD_KERNELS),
+                f"a kernel never launched on the sharded loop ({name}): "
+                f"{r['launches']}")
+        require(r["d"] == (1 if name == "unplaced" else SHARDS),
+                f"layout {name} has d = {r['d']}")
+    require(flat["plain_equal"]["ok"], f"sharded answers differ from, or "
+            f"lack, the plain tenant's to the same plan: "
+            f"{flat['plain_equal']}")
+    for name, eq in same.items():
+        require(eq["raw_equal"], f"raw scan values of {name} differ from "
+                "the unplaced layout's")
+        require(eq["answers_equal"], f"answers of {name} differ from the "
+                "unplaced layout's")
     return out
 
 
@@ -3198,6 +4017,108 @@ def _shard_index_sorted(v: np.ndarray, st, ix) -> bool:
                                    np.arange(len(v))))
 
 
+def _ckks_loop(ks, spec, base, walls, ok, sync_s, held) -> dict:
+    """Phase 11c's float tenant behind a ServeLoop: (b) encrypted again
+    into SHARDS shards under `spec` (the seed of `_ckks_shard_run`'s
+    (b): the same ciphertexts), its ShardedIndex on `v`, a
+    ShardedQueryServer with `compact_threshold` = CKKS_INSERT, then
+    through the loop the float phase's batch (ε-band Eqs and Ranges,
+    each its own τ a lane) and its reads of (b) (an ε-band Eq and
+    Ranges as points, the And + TopK 5 as bulk), then its CKKS_INSERT
+    inserts as one chunk (compaction crosses the threshold with the
+    rest queued), its deletes and its two reads after them.  Each
+    answer is held (`held`) to the plaintext and the float phase's
+    unsharded answer; walls, the compaction's, and what is queued
+    behind it go in the record."""
+    import torch
+
+    from repro_torch import db
+    from repro_torch.db.serve_loop import BULK, POINT, ServeLoop
+    v, w = base["vals"]["b"], base["writes"]
+    t0 = time.perf_counter()
+    tb = db.ShardedTable.from_arrays(ks, "ckks_b", {
+        "v": v, "aux": base["aux"]["b"]}, SEED + 166, spec=spec)
+    walls["loop_encrypt_s"] = sync_s(t0)
+    t0 = time.perf_counter()
+    idx = db.ShardedIndex.build(ks, tb, "v")
+    walls["loop_index_s"] = sync_s(t0)
+    ok["loop_index"] = _shard_index_sorted(v, tb, idx)
+    server = db.ShardedQueryServer(ks, tb, indexes={"v": idx}, batch=8,
+                                   compact_threshold=CKKS_INSERT)
+    del idx
+    loop = ServeLoop(batch=8)
+    loop.register("ckks_b", server)
+    traffic = _Traffic(loop)
+    comp = []
+    inner_compact = server.compact
+
+    def compact():
+        sync_s(0.0)                  # the insert before it, finished
+        t0 = time.perf_counter()
+        stats = inner_compact()
+        comp.append({"s": sync_s(t0), "queued": loop.queue_depth(),
+                     "n_delta": stats.n_delta,
+                     "live_bytes": torch.cuda.memory_allocated(ks.device),
+                     "block_after": tb.n_padded_per_shard})
+        return stats
+    server.compact = compact
+    inner_insert, insert = tb.insert, {}
+
+    def timed_insert(*args, **kw):
+        """The table's insert between two synchronizes, and the
+        allocator's `cudaMalloc` calls during it."""
+        sync_s(0.0)
+        a0, t0 = _device_allocs(), time.perf_counter()
+        ids = inner_insert(*args, **kw)
+        insert.update(s=sync_s(t0), allocs=_device_allocs() - a0)
+        return ids
+    tb.insert = timed_insert
+
+    # ---- reads: points by the fan-out index, the And + TopK as bulk ------
+    plans = [(q, want, m0, r0, None) for q, want, m0, r0 in base["batch"]]
+    plans += [(q, want, m0, r0, v if name == "and_topk" else None)
+              for name, q, want, m0, r0 in base["reads"]["b"]]
+    t0 = time.perf_counter()
+    tks = [traffic.submit("alice", "ckks_b", q,
+                          lambda r, a=(want, m0, r0, vv): held(r, *a))
+           for q, want, m0, r0, vv in plans]
+    res = traffic.drain()
+    walls["loop_reads_s"] = sync_s(t0)
+    ok["loop_classes"] = [res[t].klass for t in tks] == [
+        BULK if vv is not None else POINT for *_, vv in plans]
+
+    # ---- one insert chunk and the deletes, then reads behind them -------
+    n = len(v)
+    t0 = time.perf_counter()
+    traffic.write("insert", "bob", "ckks_b", w["insert"], SEED + 167,
+                  check=lambda r: np.array_equal(
+                      r.row_ids, np.arange(n, n + CKKS_INSERT)))
+    traffic.write("delete", "bob", "ckks_b", w["dead"],
+                  check=lambda r: r.deleted == CKKS_DELETE)
+    m_eq, m_rg = w["masks"]["post_compact_indexed"]
+    for q, want, m0 in ((w["q_eq"], w["want_eq"], m_eq),
+                        (w["q_rg"], w["want_rg"], m_rg)):
+        traffic.submit("alice", "ckks_b", q,
+                       lambda r, a=(want, m0, np.nonzero(m0)[0]):
+                       held(r, *a))
+    res = traffic.drain()
+    walls["loop_writes_s"] = sync_s(t0)
+    walls["loop_insert_s"] = insert["s"]
+    ok["loop_served"] = not traffic.bad
+    ok["loop_compacted_under_load"] = (len(comp) == 1
+                                       and comp[0]["queued"] > 0
+                                       and not tb.has_delta)
+    out = {"requests": len(plans) + 4, "compaction": comp,
+           "inserts_per_s": CKKS_INSERT / insert["s"],
+           "insert_driver_allocs": insert["allocs"],
+           "loop_stats": dict(vars(loop.stats)),
+           "tenants": traffic.reconciled(), "wrong": traffic.bad[:5]}
+    del tb, server, loop, traffic
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _ckks_shard_run(ks, spec, base, rate) -> dict:
     """One layout of `phase_ckks_shard`: the float phase's tables
     encrypted straight into SHARDS shards under `spec` (the same seeds
@@ -3387,9 +4308,10 @@ def _ckks_shard_run(ks, spec, base, rate) -> dict:
         n = len(vals["b"])
         all_v = np.concatenate([vals["b"], w["insert"]["v"]])
         routed = tb.route_counts(CKKS_INSERT).tolist()
-        t0 = time.perf_counter()
+        a0, t0 = _device_allocs(), time.perf_counter()
         new_ids = tb.insert(ks, w["insert"], SEED + 167)
         walls["insert_s"] = sync_s(t0)
+        insert_allocs = {"direct": _device_allocs() - a0}
         ok["insert_delete"] = bool(
             np.array_equal(new_ids, np.arange(n, n + CKKS_INSERT))
             and tb.delete(w["dead"]) == CKKS_DELETE)
@@ -3420,6 +4342,11 @@ def _ckks_shard_run(ks, spec, base, rate) -> dict:
         after = {"shard_rows": tb.shard_rows.tolist(),
                  "block": tb.n_padded_per_shard}
         del tb, ix, tables, idx
+        gc.collect()
+        torch.cuda.empty_cache()
+        served = _ckks_loop(ks, spec, base, walls, ok, sync_s, held)
+        insert_allocs["loop"] = served.pop("insert_driver_allocs")
+        peak("loop")
         launches = dict(_build.LAUNCHES)
         walls["run_s"] = sync_s(t_run)
     finally:
@@ -3450,11 +4377,12 @@ def _ckks_shard_run(ks, spec, base, rate) -> dict:
                                    else [ks.device])],
         "geometry": geometry, "b_after_compaction": after,
         "routed": routed, "delta_block": delta_block,
+        "insert_driver_allocs": insert_allocs,
         "exact": all(ok.values()), "checks": ok, "walls": walls,
         "queries_per_s": len(base["batch"]) / walls["batch_s"],
         "inserts_per_s": CKKS_INSERT / walls["insert_s"],
         "index_build_compares": build_compares, "batch": batch,
-        "join": join,
+        "join": join, "loop": served,
         "compact": {"merge_compares": cstats.merge_compares,
                     "rebuild_compares": cstats.rebuild_compares,
                     "rounds": cstats.merge_rounds},
@@ -3527,7 +4455,7 @@ def phase_ckks_shard(base, rate) -> dict:
         "four_cards": four, "seconds": time.perf_counter() - t0,
         "runs": {layout: {k: r[k] for k in (
             "d", "cards", "exact", "checks", "walls", "queries_per_s",
-            "inserts_per_s", "join", "compact", "devices",
+            "inserts_per_s", "join", "compact", "loop", "devices",
             "peak_mem_bytes", "peaks", "live_bytes", "launches",
             "launches_reconciled")}
             | {"shapes_equal": r["gadget_shapes"]["equal"]
@@ -4722,6 +5650,21 @@ def _placement_summary(placement: dict) -> dict:
         for r in placement["runs"]}
 
 
+def _loop_shard_summary(out: dict) -> dict:
+    """Phase 11a's checks across layouts, and each layout's walls,
+    point latencies, rates, compaction and peaks."""
+    return {"layouts_equal": out["layouts_equal"],
+            "four_cards": out["four_cards"],
+            "runs": {name: {k: r[k] for k in (
+                "d", "exact", "plain_equal", "p99_vs_isolated",
+                "point_isolated_ms", "point_mixed_ms", "steady_qps",
+                "inserts_per_s", "peak_mem_bytes", "stale_bytes",
+                "launches_reconciled")}
+                | {"compaction_s": [c["s"] for c in r["compaction"]],
+                   "busy_share": r["busy"]["busy_share"]}
+                for name, r in out["runs"].items()}}
+
+
 def _print_card_and_device(kernels=None) -> None:
     """The card's name and power limit (nvidia-smi), the {"kernels":
     [...]} line when given its rows, then the device record, the last
@@ -4741,10 +5684,12 @@ def _print_card_and_device(kernels=None) -> None:
 
 def _main_shard(t_start: float) -> int:
     """`python3 chip_smoke.py --shard-phases`: the build, then phases 9,
-    10 and 10b alone (shard, join with its layouts, placement) on the
-    keys the serve and write phases make, so that the placed runs can be
-    measured on a machine with several cards (mesh (a) then spans every
-    visible card).  Ends with the card line and the device record."""
+    10, 10b and 11a alone (shard, join with its layouts, placement, the
+    serving loop in front of a sharded table) on the keys the serve and
+    write phases make (11a makes its own), so that the placed runs can
+    be measured on a machine with several cards (mesh (a) then spans
+    every visible card, and 11a runs its layout (c)).  Ends with the
+    card line and the device record."""
     import torch
     from repro_torch.core.keys import keygen
     from repro_torch.core.params import make_params
@@ -4768,13 +5713,18 @@ def _main_shard(t_start: float) -> int:
     *cut, join = phase_join(ks, wks, vals, rate)
     layouts = phase_layouts(ks, wks, *cut, rate)
     placement = phase_placement(ks, wks, vals, *cut, shard_base, join, rate)
+    del cut, ks, wks, shard_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop_shard = phase_loop_shard(dev, rate)
     emit({"phase": "done", "mode": "shard-phases",
           "seconds": time.perf_counter() - t_start,
           "shard": {k: shard[k] for k in ("correct", "walls",
                                           "peak_mem_bytes")},
           "join": {"walls": join["walls"]},
           "layouts_equal": layouts["equal"],
-          "placement": _placement_summary(placement)})
+          "placement": _placement_summary(placement),
+          "loop_shard": _loop_shard_summary(loop_shard)})
     _print_card_and_device()
     return 0
 
@@ -4797,6 +5747,8 @@ def _ckks_shard_summary(shard: dict) -> dict:
             "runs": {layout: {k: r[k] for k in (
                 "d", "shapes_equal", "launches_reconciled", "walls",
                 "queries_per_s", "inserts_per_s", "peak_mem_bytes")}
+                | {"loop": {k: r["loop"][k] for k in (
+                    "inserts_per_s", "compaction")}}
                 for layout, r in shard["runs"].items()}}
 
 
@@ -4893,6 +5845,9 @@ def _main(t_start: float, dryrun: list) -> int:
     loop = phase_loop(dev, rate)
     gc.collect()
     torch.cuda.empty_cache()
+    loop_shard = phase_loop_shard(dev, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
     ckks, ckks_base = phase_ckks(dev, rate)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4931,6 +5886,7 @@ def _main(t_start: float, dryrun: list) -> int:
               "steady_qps", "shed_rate", "jit_retraces_delta",
               "threaded_exact", "overload", "index_build_s",
               "peak_mem_bytes", "launches_reconciled")},
+          "loop_shard": _loop_shard_summary(loop_shard),
           "ckks": _ckks_summary(ckks),
           "ckks_shard": _ckks_shard_summary(ckks_shard),
           "lm": {"tokens_per_s": lm["tokens_per_s"],
