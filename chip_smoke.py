@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --shard-phases   # the build, 9, 10, 10b, 11a only
-    python3 chip_smoke.py --ckks-phases    # the build, 11b and 11c only
+    python3 chip_smoke.py --ckks-phases    # the build, 11b, 11c, 11d only
+    python3 chip_smoke.py --fae-phases     # the build, 8b and 11d only
 
 Phases, each printing one JSON line:
 
@@ -62,7 +63,24 @@ Phases, each printing one JSON line:
                lanes (multiples of no cluster size), one b for every
                lane, the column form at a row offset, and n = 16,384
                (paper mode on the paper-ckks ring), split and wide.
-  9. shard   — after the write table is freed, the serve keys' hg38 table
+  8b. fae (a) — after the write table is freed, a FAE table (Alg. 3)
+               over full hg38 on the serve phase's keys: v (positions)
+               and the tie-heavy w = v // 64, every row's Alg. 3
+               operands drawn by the script (`Table.from_arrays(
+               samples=)`); SortedIndex on each, Ranges on v and Eq on w
+               (linear and indexed), And/Or, TopK 8 and OrderBy on w, a
+               QueryServer batch of 8, 1,721 EncBasic inserts and a
+               delete, reads over base ∪ delta, compaction into both
+               indexes, the reads again, then the sort-merge Eq join of
+               w against an EncBasic table of its distinct values, and
+               Finding F2 over 4,096 pairs (Alg. 4 flip share within
+               6σ of 1/2, the τ-decode's tie rate, the EncBasic
+               control's).  Each answer equal to the plaintext's (F2)
+               and to the drawn and decrypted perturbed readings
+               (`_FaeTruth`); order stages' values in the plaintext's
+               order; every kernel shape against plain, launches
+               reconciled.
+  9. shard   — after the FAE table is freed, the serve keys' hg38 table
                re-encrypted (same seed, same rows) and re-partitioned into
                4 logical shards ([4, 16,384] slots), unplaced; a
                ShardedQueryServer(batch=4) answers the 8 requests and the
@@ -193,6 +211,17 @@ Phases, each printing one JSON line:
                unplaced run's; every gadget Eval, multiply and ntt_br
                shape equal to plain, launches reconciled (paper Eval 0);
                walls, busy shares, each card's peak.
+ 11d. fae (b) — FAE tables at paper-ckks on the float phase's keys:
+               bitcoin's 1,085 rows and hg38's first 16,384, v and aux
+               FAE with drawn operands; the float phase's traffic (its
+               bands and bounds lie 0.125 from every lattice step, so
+               each answer equals the drawn perturbed reading with no
+               row undecided) and then the trap: Eq at the native τ
+               (2^-7, against ε = 0.01) and at one lattice step, held
+               against the drawn and decrypted readings outside their
+               noise bands, with the rows that differ from the
+               unperturbed plaintext counted.  Kernel shapes against
+               plain, launches reconciled.
  12. lm      — smollm-360m at full width in bfloat16 (seeded weights):
                8 requests in batches of 4, prompt 32, 16 greedy tokens;
                one batch's decode steps under torch.profiler (device
@@ -276,12 +305,13 @@ Phases, each printing one JSON line:
                {"kernels": [...]} line with every kernel's numbers (the
                n = 16,384 shapes as rows named with the profile, the
                float path's as "...@paper-ckks/db" and its sharded
-               tables' as "...@paper-ckks/shard", the HADES cells'
-               largest shape as "eval_coeff0_gadget@hades-cmp").
+               tables' as "...@paper-ckks/shard", the FAE parts' as
+               "...@paper-bfv/fae" and "...@paper-ckks/fae", the HADES
+               cells' largest shape as "eval_coeff0_gadget@hades-cmp").
 
 Launch counts are zeroed just before each path (serve, keymul, write,
-shard, join, each placement mesh, loop, each loop_shard layout, ckks,
-each ckks_shard layout,
+fae (a), shard, join, each placement mesh, loop, each loop_shard layout,
+ckks, each ckks_shard layout, fae (b),
 the lm bridge, train, the HADES cells, the examples)
 and read just after; each path's kernels must have launched.  The LM families and the
 training path launch none of the kernels: their modules are plain
@@ -355,6 +385,15 @@ CKKS_RANGES = 4
 CKKS_INSERT = 819
 CKKS_DELETE = 8
 CKKS_SHARD_CUT = 1024       # (b)'s rows in the sharded nested cross-check
+# FAE tables (phase fae): w = v // FAE_BIN gives ~1,000 tie classes of
+# ~34 rows over hg38; Finding F2 over FAE_PAIRS pairs, whose Alg. 4
+# flip share must lie within 6σ of 1/2 (σ = 0.5 / sqrt(FAE_PAIRS))
+FAE_BIN = 64
+FAE_TOPK = 8
+FAE_ORDER_ROWS = 2000
+FAE_PAIRS = 4096
+FAE_FLIP_BAND = (0.45, 0.55)
+FAE_NOISE_LANES = 1024
 # the LM families beyond dense GQA, each at its published config, with
 # the smollm phase's traffic: MLA, MoE, RG-LRU with local attention,
 # xLSTM, the whisper encoder with cross attention, llava's patch prefix
@@ -457,6 +496,9 @@ CKKS_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt", "negacyclic_mul",
                 "ntt_br_fwd")
 # the sharded float phase reuses the float phase's keys: no keygen
 CKKS_SHARD_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt")
+# the FAE parts reuse the serve and float phases' keys: encryption and
+# the gadget Eval
+FAE_KERNELS = ("eval_coeff0_gadget", "negacyclic_mul_ntt")
 
 
 def emit(obj) -> None:
@@ -3663,6 +3705,31 @@ def check_ntt_calls(calls: dict, launches: dict, rate) -> dict:
     return {**checked, "timed": timed}
 
 
+def _gadget_path_checks(ks, source, gshapes, mshapes, ncalls, launches, seed,
+                       rate) -> dict:
+    """The gadget Eval, both multiplies and ntt_br against their plain
+    versions at every shape a gadget-mode path launched them at
+    (tolerance 0, on rows of `source`), the calls reconciled with its
+    launch counts (the paper Eval at 0)."""
+    import torch
+    gadget = check_gadget_shapes(ks, source, gshapes, seed, rate)
+    muls = check_mul_shapes(ks, mshapes, seed + 1, rate)
+    ntts = check_ntt_calls(ncalls, launches, rate)
+    torch.cuda.empty_cache()
+    g_calls = sum(s["calls"] * s["launches_per_call"]
+                  for s in gadget["shapes"])
+    m_calls = {k: sum(s["calls"] for s in muls["shapes"] if s["kind"] == k)
+               for k in ("key", "var")}
+    reconciled = (g_calls == launches["eval_coeff0_gadget"]
+                  and m_calls["key"] == launches["negacyclic_mul_ntt"]
+                  and m_calls["var"] == launches["negacyclic_mul"]
+                  and ntts["launches_reconciled"]
+                  and launches["eval_coeff0_paper"] == 0)
+    return {"gadget_shapes": gadget, "mul_shapes": muls, "ntt_calls": ntts,
+            "shapes_equal": gadget["equal"] and muls["equal"]
+            and ntts["equal"], "launches_reconciled": reconciled}
+
+
 def phase_ckks(dev, rate) -> dict:
     """Float columns through the engine at CKKS_PROFILE in gadget mode
     (`benchmarks/fig2_ckks.py` and `db_engine.py::run_ckks`'s traffic),
@@ -3961,20 +4028,11 @@ def phase_ckks(dev, rate) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    gadget = check_gadget_shapes(ks, source, gshapes, SEED + 68, rate)
-    muls = check_mul_shapes(ks, mshapes, SEED + 69, rate)
-    ntts = check_ntt_calls(ncalls, launches, rate)
+    kern = _gadget_path_checks(ks, source, gshapes, mshapes, ncalls,
+                               launches, SEED + 68, rate)
     del source, ncalls
-    torch.cuda.empty_cache()
-    g_calls = sum(s["calls"] * s["launches_per_call"]
-                  for s in gadget["shapes"])
-    m_calls = {k: sum(s["calls"] for s in muls["shapes"] if s["kind"] == k)
-               for k in ("key", "var")}
-    reconciled = (g_calls == launches["eval_coeff0_gadget"]
-                  and m_calls["key"] == launches["negacyclic_mul_ntt"]
-                  and m_calls["var"] == launches["negacyclic_mul"]
-                  and ntts["launches_reconciled"]
-                  and launches["eval_coeff0_paper"] == 0)
+    gadget, muls, ntts, reconciled = (kern[k] for k in (
+        "gadget_shapes", "mul_shapes", "ntt_calls", "launches_reconciled"))
     exact = all(ok.values())
     out = {
         "phase": "ckks", "profile": CKKS_PROFILE, "mode": "gadget",
@@ -4357,20 +4415,11 @@ def _ckks_shard_run(ks, spec, base, rate) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    gadget = check_gadget_shapes(ks, source, gshapes, SEED + 168, rate)
-    muls = check_mul_shapes(ks, mshapes, SEED + 169, rate)
-    ntts = check_ntt_calls(ncalls, launches, rate)
+    kern = _gadget_path_checks(ks, source, gshapes, mshapes, ncalls,
+                               launches, SEED + 168, rate)
     del source, ncalls
-    torch.cuda.empty_cache()
-    g_calls = sum(s["calls"] * s["launches_per_call"]
-                  for s in gadget["shapes"])
-    m_calls = {k: sum(s["calls"] for s in muls["shapes"] if s["kind"] == k)
-               for k in ("key", "var")}
-    reconciled = (g_calls == launches["eval_coeff0_gadget"]
-                  and m_calls["key"] == launches["negacyclic_mul_ntt"]
-                  and m_calls["var"] == launches["negacyclic_mul"]
-                  and ntts["launches_reconciled"]
-                  and launches["eval_coeff0_paper"] == 0)
+    gadget, muls, ntts, reconciled = (kern[k] for k in (
+        "gadget_shapes", "mul_shapes", "ntt_calls", "launches_reconciled"))
     return {
         "d": spec.mesh_devices,
         "cards": [str(x) for x in (spec.mesh.distinct if spec.mesh
@@ -4480,6 +4529,691 @@ def phase_ckks_shard(base, rate) -> dict:
             "the unplaced run's")
     require(answers_equal, "placed answers differ from the unplaced run's")
     return {**out, "kernel_run": flat}
+
+
+class _FaeTruth:
+    """What the client knows of a FAE table, and the engine's decode of
+    it, in three readings of each column (one payload a global row id):
+
+      plain — Δ·m: the unperturbed plaintext, decided exactly;
+      drawn — Δ·m + round(Δ·pert) + e_m, Alg. 3's payload as the harness
+              drew it (EncBasic rows, the inserts: Δ·m); a row within 6σ
+              of the compare's noise of a threshold is undecided;
+      phase — the phase each ciphertext decrypts to (the drawn payload
+              plus its encryption noise); undecided within 6σ of the
+              gadget key multiply's noise alone.
+
+    The compare's noise: both operands' fresh noise (`core.noise.predict`)
+    and the key multiply's Σ digit·e over K·D·n terms.  Its digits are
+    unsigned, uniform on [0, B): E[digit²] = (B − 1)(2B − 1)/6, not the
+    B²/12 of `predict`, so a key's multiply noise carries a mean of its
+    own (`_key_noise` measures it) and σ here is twice `predict`'s.  A
+    trapdoor reads as its payload (plain, drawn) or its own phase."""
+
+    READINGS = ("plain", "drawn", "phase")
+
+    def __init__(self, ks):
+        import math
+        from repro_torch.core import noise
+        self.ks = ks
+        p, b = ks.params, noise.predict(ks.params)
+        Bg, B = p.gadget_base, p.noise_bound
+        key_var = (p.num_towers * p.gadget_digits_per_tower * p.n
+                   * (Bg - 1) * (2 * Bg - 1) / 6 * B * (B + 1) / 3)
+        fresh_var = 2 * (p.scale * b.fresh_sigma) ** 2
+        self.margin = {"plain": 0.0,
+                       "drawn": 6 * math.sqrt(fresh_var + key_var) / p.scale,
+                       "phase": 6 * math.sqrt(key_var) / p.scale}
+        self.cols = {r: {} for r in self.READINGS}
+        self.records, self._phases = [], {}
+
+    def payload(self, m) -> np.ndarray:
+        """`core.encrypt._payload` in numpy: Δ·m (bfv), round(Δ·m)
+        (ckks, half to even)."""
+        p = self.ks.params
+        m = np.asarray(m)
+        if p.profile.scheme == "bfv":
+            return m.astype(np.int64) * p.delta_enc
+        return np.round(m.astype(np.float64) * p.delta_enc).astype(np.int64)
+
+    def add(self, col, m, pert=None, e_m=None) -> None:
+        """Append rows of `col` (global id order): FAE rows with their
+        drawn `pert` and `e_m`, EncBasic rows without."""
+        plain = self.payload(m)
+        drawn = plain if pert is None else (
+            plain + np.round(np.asarray(pert)[:len(plain)]
+                             * self.ks.params.delta_enc).astype(np.int64)
+            + np.asarray(e_m)[:len(plain)])
+        for r, x in (("plain", plain), ("drawn", drawn)):
+            self.cols[r][col] = np.concatenate(
+                [self.cols[r].get(col, np.zeros(0, np.int64)), x])
+
+    def read_phases(self, table, col) -> np.ndarray:
+        """Every global row's phase of `col` (base then delta)."""
+        from repro_torch.core import encrypt as E
+        step = E.enc_chunk_rows(self.ks.params)
+        ids = np.arange(table.n_total)
+        ph = np.concatenate([E.decrypt_raw(self.ks, table.gather(
+            col, ids[lo:lo + step])).cpu().numpy()
+            for lo in range(0, len(ids), step)])
+        self.cols["phase"][col] = ph
+        return ph
+
+    def bound(self, x, ct, reading) -> int:
+        if reading != "phase":
+            return int(self.payload(x))
+        if id(ct) not in self._phases:
+            from repro_torch.core import encrypt as E
+            self._phases[id(ct)] = (ct, int(E.decrypt_raw(self.ks, ct)))
+        return self._phases[id(ct)][1]
+
+    def decide(self, expr, reading) -> tuple:
+        """(mask, undecided) of an expression over every row: ("eq", col,
+        x, ct, eps), ("range", col, lo, ct_lo, hi, ct_hi, eps), ("and" |
+        "or", a, b), ("not", a); the executor's three-way decode at the
+        leaf's τ (Eq: 0; Range: ≥ 0 against lo, ≤ 0 against hi)."""
+        from repro_torch.core.compare import resolve_tau
+        kind = expr[0]
+        if kind in ("and", "or"):
+            (ma, ua), (mb, ub) = (self.decide(e, reading) for e in expr[1:])
+            return (ma & mb if kind == "and" else ma | mb), ua | ub
+        if kind == "not":
+            m, u = self.decide(expr[1], reading)
+            return ~m, u
+        p = self.cols[reading][expr[1]]
+        tau = resolve_tau(self.ks, expr[-1]) / self.ks.params.scale
+        margin = self.margin[reading]
+        d = p - self.bound(expr[2], expr[3], reading)
+        if kind == "eq":
+            return np.abs(d) < tau, np.abs(np.abs(d) - tau) <= margin
+        d_hi = p - self.bound(expr[4], expr[5], reading)
+        return ((d > -tau) & (d_hi < tau),
+                (np.abs(d + tau) <= margin) | (np.abs(d_hi - tau) <= margin))
+
+    def record(self, name, expr, mask, alive, *, decided=True) -> None:
+        """Keep one answer's mask (over the global ids of its time) to be
+        held against each reading by `check`; `decided`: the drawn
+        reading must leave no row undecided."""
+        self.records.append((name, expr, np.asarray(mask).copy(),
+                             np.asarray(alive).copy(), decided))
+
+    def check(self) -> dict:
+        """Each recorded answer against the drawn and phase readings:
+        equal outside their undecided rows (the drawn reading leaves none
+        for `decided` answers); the undecided counts, and the rows that
+        differ from the unperturbed plaintext (a part that needs none
+        requires it)."""
+        out = {}
+        for name, expr, mask, alive, decided in self.records:
+            n = len(mask)
+            rec = {}
+            ok = True
+            for r in self.READINGS:
+                want, und = self.decide(expr, r)
+                want, und = want[:n] & alive, und[:n] & alive
+                if r == "plain":
+                    rec["differ_from_plain"] = int((mask != want).sum())
+                    continue
+                ok &= bool(np.array_equal(mask[~und], want[~und]))
+                rec[f"{r}_undecided"] = int(und.sum())
+            ok &= not (decided and rec["drawn_undecided"])
+            out[name] = {"ok": ok, "matched": int(mask.sum()), **rec}
+        return out
+
+
+def _key_noise(ks, ct, margin, seed) -> dict:
+    """The key multiply's noise on FAE_NOISE_LANES rows of a column
+    against a trapdoor of 0: eval − scale·(phase − the trapdoor's
+    phase), in payload units; its mean (the key's own), spread and
+    largest size, which the phase reading's margin must cover."""
+    from repro_torch.core import compare as C
+    from repro_torch.core import encrypt as E
+    rows = E.Ciphertext(ct.c0[:FAE_NOISE_LANES], ct.c1[:FAE_NOISE_LANES])
+    trap = E.encrypt(ks, 0, seed)
+    scale = ks.params.scale
+    ev = C.eval_value(ks, rows, trap).cpu().numpy()
+    dev = (ev - scale * (E.decrypt_raw(ks, rows).cpu().numpy()
+                         - int(E.decrypt_raw(ks, trap)))) / scale
+    return {"lanes": len(dev), "mean": float(dev.mean()),
+            "std": float(dev.std()), "max_abs": float(np.abs(dev).max()),
+            "margin": margin, "covered": bool(np.abs(dev).max() <= margin)}
+
+
+def _fae_plan(expr):
+    """The plan of a `_FaeTruth` expression."""
+    from repro_torch import db
+    kind = expr[0]
+    if kind == "eq":
+        return db.Eq(expr[1], expr[3], eps=expr[4])
+    if kind == "range":
+        return db.Range(expr[1], expr[3], expr[5], eps=expr[6])
+    if kind == "not":
+        return db.Not(_fae_plan(expr[1]))
+    return (db.And if kind == "and" else db.Or)(*map(_fae_plan, expr[1:]))
+
+
+def _fae_order(truth, col, ids, vals, sel, descending) -> dict:
+    """An order stage's answer on a FAE column: its plaintext values must
+    equal the selection's in order; the share of row ids that differ
+    from the plaintext's stable order (a tie class is ordered by its
+    perturbations); and the adjacent pairs whose drawn payloads are out
+    of order by more than the compare's noise (must be none)."""
+    sign = -1 if descending else 1
+    plain = sel[np.argsort(sign * vals[sel], kind="stable")][:len(ids)]
+    p = truth.cols["drawn"][col][ids]
+    return {"rows": int(len(ids)),
+            "values_ok": bool(np.array_equal(vals[ids], vals[plain])),
+            "ids_differ_share": float(np.mean(ids != plain))
+            if len(ids) else 0.0,
+            "inversions": int((sign * np.diff(p)
+                               < -truth.margin["drawn"]).sum())}
+
+
+def _fae_f2(ks, value, seed) -> dict:
+    """Finding F2 over FAE_PAIRS pairs of FAE encryptions of one value:
+    Alg. 4's flip share, the τ-decode's tie rate (compare == 0), and the
+    EncBasic control's tie rate."""
+    import torch
+    from repro_torch.core import compare as C
+    from repro_torch.core import encrypt as E
+    m = torch.full((FAE_PAIRS,), value, device=ks.device)
+    f1, f2 = (E.encrypt_fae(ks, m, seed + i) for i in (0, 1))
+    b1, b2 = (E.encrypt(ks, m, seed + i) for i in (2, 3))
+    return {"pairs": FAE_PAIRS, "value": float(value),
+            "flip_share": float(C.compare_fae(ks, f1, f2).double().mean()),
+            "tau_probe_rate": float((C.compare(ks, f1, f2) == 0)
+                                    .double().mean()),
+            "basic_zero_rate": float((C.compare(ks, b1, b2) == 0)
+                                     .double().mean())}
+
+
+def _fae_require(out, part) -> None:
+    require(out["exact"], f"a FAE answer ({part}) diverged: {out['checks']}")
+    require(out["shapes_equal"], f"a kernel != plain at a FAE shape ({part})")
+    require(out["launches_reconciled"],
+            f"launches {out['launches']} != the recorded calls ({part})")
+    require(all(out["launches"][k] > 0 for k in FAE_KERNELS),
+            f"a kernel never launched on the FAE path ({part}): "
+            f"{out['launches']}")
+
+
+def _fae_draws(ks, rng, n_pad) -> tuple:
+    """Alg. 3's operands for n_pad rows, as `encrypt_fae` draws them:
+    pert ~ U(-ε, ε), e_m uniform on [-B, B]."""
+    p = ks.params
+    return (rng.uniform(-p.epsilon, p.epsilon, n_pad),
+            rng.integers(-p.noise_bound, p.noise_bound + 1, n_pad))
+
+
+def phase_fae(ks, vals, rate) -> dict:
+    """Part (a): a FAE table over full hg38 at PROFILE in gadget mode, on
+    the serve phase's keys.  Two FAE columns, v (the positions) and the
+    tie-heavy w = v // FAE_BIN, whose Alg. 3 operands the harness draws
+    (`Table.from_arrays(samples=)`); SortedIndex on each; Ranges on v
+    (linear and indexed), Eq on w at the native τ (linear and indexed),
+    And/Or; TopK FAE_TOPK and OrderBy on w; a QueryServer batch of 8
+    over both indexes; WRITE_SHARE × rows inserts (EncBasic, as the
+    reference's) and a delete, reads over base ∪ delta, compaction into
+    both indexes, the reads again; v's index retired, the sort-merge Eq
+    join of w against an EncBasic table of its distinct values; Finding
+    F2 over FAE_PAIRS pairs.  Every Range/Eq answer equals the
+    plaintext's (F2: the perturbation is ~1 % of τ here) and the drawn
+    and decrypted perturbed readings (`_FaeTruth`); order stages' values
+    equal the plaintext's in order; join pairs equal the plaintext's.
+    Then every kernel shape against plain, launches reconciled."""
+    import torch
+
+    from repro_torch import db
+    from repro_torch.core import encrypt as E
+    from repro_torch.core.compare import next_pow2
+    from repro_torch.kernels import _build
+
+    hp = ks.params
+    rng = np.random.default_rng(SEED + 80)
+    n = len(vals)
+    data = {"v": vals, "w": vals // FAE_BIN}
+    draws = {c: _fae_draws(ks, rng, next_pow2(n)) for c in data}
+    truth = _FaeTruth(ks)
+    for c, m in data.items():
+        truth.add(c, m, *draws[c])
+    seeds = iter(range(9000, 10000))
+    walls, peaks, ok = {}, {}, {}
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def peak(name):
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    def eq(col, x):
+        return ("eq", col, int(x), E.encrypt(ks, int(x), next(seeds)), None)
+
+    def rng_expr(col, lo, hi):
+        return ("range", col, int(lo), E.encrypt(ks, int(lo), next(seeds)),
+                int(hi), E.encrypt(ks, int(hi), next(seeds)), None)
+
+    def draw_range(width):
+        lo = int(rng.integers(0, hp.t - width))
+        return lo, lo + width
+
+    def run(name, expr, table, indexes=None, t_key=None):
+        t0 = time.perf_counter()
+        res = db.execute(ks, table, _fae_plan(expr), indexes=indexes)
+        if t_key:
+            walls[t_key] = walls.get(t_key, 0.0) + sync_s(t0)
+        truth.record(name, expr, res.mask, table.alive)
+        return res
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    gshapes, gstop = record_gadget_shapes()
+    mshapes, mstop = record_mul_shapes()
+    ncalls, nstop = record_calls(("ntt_br",))
+    try:
+        t0 = time.perf_counter()
+        t = db.Table.from_arrays(
+            ks, "hg38_fae", data, SEED + 81, fae=True,
+            samples={c: (None, None, None, *draws[c]) for c in data})
+        walls["encrypt_s"] = sync_s(t0)
+        idx = {}
+        for c in ("v", "w"):
+            t0 = time.perf_counter()
+            idx[c] = db.SortedIndex.build(ks, t, c)
+            walls[f"index_{c}_s"] = sync_s(t0)
+            ok[f"index_{c}"] = bool(np.all(np.diff(data[c][idx[c].perm])
+                                           >= 0))
+        peak("build")
+
+        # ---- reads: Ranges on v, Eq on w, And/Or, linear and indexed ---
+        w = data["w"]
+        cls, counts = np.unique(w, return_counts=True)
+        heavy = [int(cls[np.argmax(counts)]), int(rng.choice(w))]
+        exprs = {f"range{i}": rng_expr("v", *draw_range(wd))
+                 for i, wd in enumerate((50, 500, 5000, 20000))}
+        exprs |= {f"eq{i}": eq("w", x) for i, x in enumerate(heavy)}
+        exprs["and"] = ("and", exprs["range2"], eq("w", w[n // 3]))
+        exprs["or"] = ("or", exprs["eq1"], exprs["range0"])
+        for name, expr in exprs.items():
+            for how, use in (("linear", None), ("indexed", idx)):
+                run(f"{name}_{how}", expr, t, use,
+                    f"{name.rstrip('0123456789')}_{how}_s")
+        peak("reads")
+
+        # ---- TopK and OrderBy on the tie-heavy FAE column --------------
+        lo, hi = (int(x) for x in np.percentile(vals, [30, 70]))
+        sel = np.nonzero((vals >= lo) & (vals <= hi))[0]
+        where = rng_expr("v", lo, hi)
+        t0 = time.perf_counter()
+        res = db.execute(ks, t, db.Query(where=_fae_plan(where),
+                                         top_k=db.TopK("w", FAE_TOPK)))
+        walls["topk_s"] = sync_s(t0)
+        topk = _fae_order(truth, "w", res.row_ids, w, sel, True)
+        ordered = np.sort(vals)
+        lo2, hi2 = (int(ordered[i]) for i in (n // 2, n // 2 + FAE_ORDER_ROWS))
+        sel2 = np.nonzero((vals >= lo2) & (vals <= hi2))[0]
+        t0 = time.perf_counter()
+        res = db.execute(ks, t, db.Query(
+            where=_fae_plan(rng_expr("v", lo2, hi2)),
+            order_by=db.OrderBy("w")))
+        walls["order_by_s"] = sync_s(t0)
+        order_by = _fae_order(truth, "w", res.row_ids, w, sel2, False)
+        ok["topk"] = topk["values_ok"] and not topk["inversions"]
+        ok["order_by"] = (order_by["values_ok"] and not order_by["inversions"]
+                          and order_by["rows"] == len(sel2))
+        peak("order")
+
+        # ---- a QueryServer batch of 8 over both indexes ----------------
+        batch = [exprs[k] for k in ("range0", "range1", "range2", "range3",
+                                    "eq0", "eq1")]
+        batch += [("and", rng_expr("v", *draw_range(3000)),
+                   eq("w", w[n // 5])),
+                  ("or", eq("w", w[n // 7]), rng_expr("v", 0, 100))]
+        server = db.QueryServer(ks, t, indexes=idx, batch=len(batch))
+        qids = [server.submit(_fae_plan(e)) for e in batch]
+        t0 = time.perf_counter()
+        got = server.run()
+        walls["batch_s"] = sync_s(t0)
+        for i, (qid, e) in enumerate(zip(qids, batch)):
+            truth.record(f"batch{i}", e, got[qid].mask, t.alive)
+        bs = server.batch_log[0]
+        served = {"queries": bs.queries, "eval_calls": bs.eval_calls,
+                  "index_compares": bs.index_compares}
+        del server, got
+        peak("batch")
+
+        # ---- writes on the FAE base: EncBasic inserts, a delete --------
+        m_ins = max(8, round(WRITE_SHARE * n))
+        ins_v = rng.choice(vals, m_ins)
+        ins = {"v": ins_v, "w": ins_v // FAE_BIN}
+        t0 = time.perf_counter()
+        new_ids = t.insert(ks, ins, SEED + 82)
+        walls["insert_s"] = sync_s(t0)
+        for c in data:
+            truth.add(c, ins[c])
+        all_w = np.concatenate([w, ins["w"]])
+        ok["insert_delete"] = bool(
+            np.array_equal(new_ids, np.arange(n, n + m_ins))
+            and t.delete([n // 2]) == 1)
+        union = {"range": rng_expr("v", *draw_range(2000)),
+                 "eq": eq("w", ins["w"][m_ins // 2])}
+
+        def union_reads(tag):
+            for name, expr in union.items():
+                for how, use in (("linear", None), ("indexed", idx)):
+                    run(f"{tag}_{name}_{how}", expr, t, use,
+                        f"{tag}_{how}_s")
+        union_reads("union")
+        peak("union_reads")
+        t0 = time.perf_counter()
+        cstats = db.compact(ks, t, idx)
+        walls["compact_s"] = sync_s(t0)
+        all_v = np.concatenate([vals, ins_v])
+        ok["compact"] = bool(
+            not t.has_delta
+            and all(np.all(np.diff(x[idx[c].perm]) >= 0)
+                    for c, x in (("v", all_v), ("w", all_w)))
+            and 0 < cstats.merge_compares < cstats.rebuild_compares)
+        peak("compact")
+        union_reads("post_compact")
+
+        # ---- the sort-merge Eq join: w against its distinct values -----
+        del idx["v"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        keys = np.unique(all_w)
+        right = db.Table.from_arrays(ks, "hg38_bins", {"w": keys},
+                                     SEED + 83)
+        t0 = time.perf_counter()
+        jres = db.execute_join(ks, t, right, db.Join(None, None, on="w"),
+                               strategy="sort_merge",
+                               left_indexes={"w": idx["w"]})
+        walls["join_s"] = sync_s(t0)
+        live = np.nonzero(t.alive)[0]
+        want_pairs = np.stack([live, np.searchsorted(keys, all_w[live])], 1)
+        ok["join"] = bool(np.array_equal(jres.pairs, want_pairs))
+        js = jres.stats
+        join = {"pairs": len(jres), "build_compares": js.build_compares,
+                "merge_compares": js.merge_compares,
+                "adjacency_compares": js.adjacency_compares}
+        del jres
+        peak("join")
+
+        # ---- Finding F2, the key multiply's noise ----------------------
+        t0 = time.perf_counter()
+        f2 = _fae_f2(ks, int(vals[0]), SEED + 84)
+        walls["f2_s"] = sync_s(t0)
+        ok["f2"] = (FAE_FLIP_BAND[0] <= f2["flip_share"] <= FAE_FLIP_BAND[1]
+                    and f2["basic_zero_rate"] == 1.0)
+        key_noise = _key_noise(ks, t.columns["v"], truth.margin["phase"],
+                               SEED + 86)
+        ok["key_noise"] = key_noise["covered"]
+        col = t.columns["w"]
+        source = E.Ciphertext(col.c0[:256].clone(), col.c1[:256].clone())
+        del col
+    finally:
+        gstop()
+        mstop()
+        nstop()
+    launches = dict(_build.LAUNCHES)
+    for c in data:
+        truth.read_phases(t, c)
+    payload_err = max(int(np.abs(truth.cols["phase"][c]
+                                 - truth.cols["drawn"][c]).max())
+                      for c in data)
+    del t, idx, right
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = truth.check()
+    for name, r in checks.items():
+        ok[name] = r["ok"] and not r["differ_from_plain"]
+    kern = _gadget_path_checks(ks, source, gshapes, mshapes, ncalls, launches,
+                              SEED + 85, rate)
+    del source, ncalls
+    out = {
+        "phase": "fae", "part": "a", "profile": hp.profile.name,
+        "mode": "gadget", "n": hp.n, "rows": n, "n_padded": next_pow2(n),
+        "bin": FAE_BIN, "tie_classes": len(cls),
+        "largest_tie_class": int(counts.max()),
+        "inserted": m_ins, "deleted": 1,
+        "epsilon": hp.epsilon, "tau": hp.tau,
+        "margins": truth.margin, "payload_max_noise": payload_err,
+        "exact": all(ok.values()), "checks": ok, "answers": checks,
+        "topk": topk, "order_by": order_by, "batch": served, "join": join,
+        "compact": {"merge_compares": cstats.merge_compares,
+                    "rebuild_compares": cstats.rebuild_compares,
+                    "rounds": cstats.merge_rounds},
+        "f2": f2, "key_noise": key_noise, "walls": walls,
+        "queries_per_s": len(batch) / walls["batch_s"],
+        "inserts_per_s": m_ins / walls["insert_s"],
+        "peak_mem_bytes": max(peaks.values()), "peaks": peaks,
+        "launches": launches,
+        **{k: kern[k] for k in ("shapes_equal", "launches_reconciled",
+                                "gadget_shapes", "mul_shapes", "ntt_calls")},
+    }
+    emit(out)
+    _fae_require(out, "a")
+    return out
+
+
+def phase_fae_ckks(ks, rate) -> dict:
+    """Part (b): FAE tables at CKKS_PROFILE in gadget mode on the float
+    phase's keys: (a) bitcoin's 1,085 rows and (b) hg38's first
+    CKKS_ROWS rows, each with v and a lattice aux, every column FAE with
+    operands the harness draws.  SortedIndex on each v; the float
+    phase's traffic (an ε-band Eq, CKKS_RANGES Ranges with off-lattice
+    bounds, linear and indexed, And(Range, ε-band Eq) + TopK 5, on both;
+    a QueryServer batch of 8 over (b)'s index, each lane its own ε; the
+    ε-band sort-merge join (b).v × (a).v), whose bands and bounds lie
+    ≥ 0.125 from every lattice step, so the perturbation (≤ 0.02 between
+    two rows) decides none of them: each answer equals the drawn
+    reading with no row undecided.  Then the trap (τ = 2^-7 against ε =
+    0.01): Eq at the native τ and at ε = one lattice step, linear and
+    indexed, held against the drawn and decrypted readings outside their
+    noise bands, and the rows where they differ from the unperturbed
+    plaintext counted.  Every kernel shape against plain, launches
+    reconciled."""
+    import torch
+
+    from repro_torch import db
+    from repro_torch.core import encrypt as E
+    from repro_torch.core.compare import next_pow2, resolve_tau
+    from repro_torch.kernels import _build
+
+    G = CKKS_GRID
+    hp = ks.params
+    rng = np.random.default_rng(SEED + 90)
+    vals = {"a": _float_dataset("bitcoin"),
+            "b": _float_dataset("hg38", CKKS_ROWS)}
+    aux = {k: _lattice(rng, len(v)) for k, v in vals.items()}
+    seeds = iter(range(11000, 12000))
+    walls, peaks, ok = {}, {}, {}
+    truths = {k: _FaeTruth(ks) for k in vals}
+    draws = {}
+    for k, v in vals.items():
+        for c, m in (("v", v), ("aux", aux[k])):
+            draws[k, c] = _fae_draws(ks, rng, next_pow2(len(v)))
+            truths[k].add(c, m, *draws[k, c])
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def peak(name):
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    def fenc(x):
+        return E.encrypt(ks, float(x), next(seeds))
+
+    def eq(col, x, eps):
+        return ("eq", col, float(x), fenc(x), eps)
+
+    def rng_expr(col, lo, hi, eps=None):
+        return ("range", col, lo, fenc(lo), hi, fenc(hi), eps)
+
+    def draw_range(v):
+        lo, hi = np.sort(rng.choice(v, 2, replace=False))
+        return float(lo) - G / 2, float(hi) + G / 2
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    gshapes, gstop = record_gadget_shapes()
+    mshapes, mstop = record_mul_shapes()
+    ncalls, nstop = record_calls(("ntt_br",))
+    try:
+        tables, idx = {}, {}
+        for k in ("a", "b"):
+            t0 = time.perf_counter()
+            tables[k] = db.Table.from_arrays(
+                ks, f"fae_{k}", {"v": vals[k], "aux": aux[k]},
+                SEED + 91 + (k == "b"), fae=True,
+                samples={c: (None, None, None, *draws[k, c])
+                         for c in ("v", "aux")})
+            walls[f"encrypt_{k}_s"] = sync_s(t0)
+        for k in ("a", "b"):
+            t0 = time.perf_counter()
+            idx[k] = db.SortedIndex.build(ks, tables[k], "v")
+            walls[f"index_{k}_s"] = sync_s(t0)
+            ok[f"index_{k}"] = bool(np.all(np.diff(
+                vals[k][idx[k].perm]) >= 0))
+        peak("build")
+
+        # ---- the float phase's traffic, then the trap -------------------
+        for k in ("a", "b"):
+            v, t, ix, tr = vals[k], tables[k], {"v": idx[k]}, truths[k]
+            n = len(v)
+            exprs = {"eq_band": eq("v", v[n // 3], 2 * G + G / 2)}
+            exprs |= {f"range{i}": rng_expr("v", *draw_range(v))
+                      for i in range(CKKS_RANGES)}
+            lo = float(np.percentile(v, 30)) - G / 2
+            hi = float(np.percentile(v, 70)) + G / 2
+            and_expr = ("and", rng_expr("v", lo, hi),
+                        eq("aux", aux[k][n // 2], G + G / 2))
+            trap = {"eq_native": eq("v", v[n // 2], None),
+                    "eq_one_step": eq("v", v[n // 4], G)}
+            for group, decided in ((exprs, True), (trap, False)):
+                for name, expr in group.items():
+                    for how, use in (("linear", None), ("indexed", ix)):
+                        t0 = time.perf_counter()
+                        res = db.execute(ks, t, _fae_plan(expr), indexes=use)
+                        key = f"{name.rstrip('0123456789')}_{how}_{k}_s"
+                        walls[key] = walls.get(key, 0.0) + sync_s(t0)
+                        tr.record(f"{name}_{how}", expr, res.mask,
+                                  t.alive, decided=decided)
+            t0 = time.perf_counter()
+            res = db.execute(ks, t, db.Query(where=_fae_plan(and_expr),
+                                             top_k=db.TopK("v", 5)))
+            walls[f"and_topk_{k}_s"] = sync_s(t0)
+            tr.record("and_topk", and_expr, res.mask, t.alive)
+            sel = np.nonzero(res.mask)[0]
+            ok[f"topk_{k}"] = _fae_order(tr, "v", res.row_ids, v, sel,
+                                         True)["values_ok"]
+        del ix, use
+        peak("queries")
+
+        # ---- a batch of 8 over (b)'s index, each with its own τ --------
+        v = vals["b"]
+        batch = [eq("v", rng.choice(v), e)
+                 for e in (G + G / 2, 2 * G + G / 2, 3 * G + G / 2,
+                           4 * G + G / 2)]
+        batch += [rng_expr("v", *draw_range(v), e)
+                  for e in (None, G, 2 * G, 3 * G)]
+        server = db.QueryServer(ks, tables["b"], indexes={"v": idx["b"]},
+                                batch=len(batch))
+        qids = [server.submit(_fae_plan(e)) for e in batch]
+        t0 = time.perf_counter()
+        got = server.run()
+        walls["batch_s"] = sync_s(t0)
+        for i, (qid, e) in enumerate(zip(qids, batch)):
+            truths["b"].record(f"batch{i}", e, got[qid].mask,
+                               tables["b"].alive)
+        del server, got
+        peak("batch")
+
+        # ---- the ε-band sort-merge join of (b).v against (a).v ----------
+        band = G + G / 2
+        t0 = time.perf_counter()
+        jres = db.execute_join(
+            ks, tables["b"], tables["a"],
+            db.Join(None, None, on="v", eps=band), strategy="sort_merge",
+            left_indexes={"v": idx["b"]}, right_indexes={"v": idx["a"]})
+        walls["join_s"] = sync_s(t0)
+        pairs = jres.pairs
+        js = jres.stats
+        join = {"pairs": len(jres), "merge_compares": js.merge_compares,
+                "adjacency_compares": js.adjacency_compares,
+                "verify_compares": js.verify_compares}
+        del jres
+        peak("join")
+        key_noise = _key_noise(ks, tables["b"].columns["v"],
+                               truths["b"].margin["phase"], SEED + 96)
+        ok["key_noise"] = key_noise["covered"]
+        col = tables["a"].columns["v"]
+        source = E.Ciphertext(col.c0[:256].clone(), col.c1[:256].clone())
+        del col
+    finally:
+        gstop()
+        mstop()
+        nstop()
+    launches = dict(_build.LAUNCHES)
+    for k in ("a", "b"):
+        for c in ("v", "aux"):
+            truths[k].read_phases(tables[k], c)
+    payload_err = max(int(np.abs(tr.cols["phase"][c]
+                                 - tr.cols["drawn"][c]).max())
+                      for tr in truths.values() for c in ("v", "aux"))
+    del tables, idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {k: tr.check() for k, tr in truths.items()}
+    for k, per in checks.items():
+        for name, r in per.items():
+            ok[f"{k}_{name}"] = r["ok"]
+    # the join: pairs by the drawn payloads, none within the noise band
+    tau = resolve_tau(ks, band) / hp.scale
+    d = (truths["b"].cols["drawn"]["v"][:len(vals["b"]), None]
+         - truths["a"].cols["drawn"]["v"][None, :len(vals["a"])])
+    want_pairs = np.argwhere(np.abs(d) < tau)
+    join["undecided"] = int((np.abs(np.abs(d) - tau)
+                             <= truths["b"].margin["drawn"]).sum())
+    plain_pairs = np.argwhere(np.abs(vals["b"][:, None]
+                                     - vals["a"][None, :]) <= band)
+    del d
+    ok["join"] = bool(np.array_equal(pairs, want_pairs)
+                      and not join["undecided"]
+                      and join["verify_compares"] > 0)
+    join["differ_from_plain"] = int(len(pairs) != len(plain_pairs)
+                                    or not np.array_equal(pairs,
+                                                          plain_pairs))
+    kern = _gadget_path_checks(ks, source, gshapes, mshapes, ncalls, launches,
+                              SEED + 95, rate)
+    del source, ncalls
+    out = {
+        "phase": "fae", "part": "b", "profile": hp.profile.name,
+        "mode": "gadget", "n": hp.n, "grid": G, "epsilon": hp.epsilon,
+        "tau_units": hp.tau / (hp.scale * hp.delta_enc),
+        "rows": {k: len(v) for k, v in vals.items()},
+        "margins": truths["b"].margin, "payload_max_noise": payload_err,
+        "exact": all(ok.values()), "checks": ok, "answers": checks,
+        "differ_from_plain": {k: sum(r["differ_from_plain"]
+                                     for r in per.values())
+                              for k, per in checks.items()},
+        "join": join, "key_noise": key_noise, "walls": walls,
+        "queries_per_s": len(batch) / walls["batch_s"],
+        "peak_mem_bytes": max(peaks.values()), "peaks": peaks,
+        "launches": launches,
+        **{k: kern[k] for k in ("shapes_equal", "launches_reconciled",
+                                "gadget_shapes", "mul_shapes", "ntt_calls")},
+    }
+    emit(out)
+    _fae_require(out, "b")
+    return out
 
 
 def _serve_and_trace(cfg, params, prompts, dev, frames=None) -> dict:
@@ -5628,9 +6362,12 @@ def main() -> int:
         return _main_shard(t_start)
     if sys.argv[1:] == ["--ckks-phases"]:
         return _main_ckks(t_start)
+    if sys.argv[1:] == ["--fae-phases"]:
+        return _main_fae(t_start)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (the options "
-              "are --shard-phases and --ckks-phases)", file=sys.stderr)
+              "are --shard-phases, --ckks-phases and --fae-phases)",
+              file=sys.stderr)
         return 2
     dryrun = start_dryrun()
     try:
@@ -5752,17 +6489,19 @@ def _ckks_shard_summary(shard: dict) -> dict:
                 for layout, r in shard["runs"].items()}}
 
 
-def _ckks_rows(ckks: dict, engine: str = "db") -> list:
-    """The float path's kernel rows for the card line: each kernel the
-    path launched at its most-called shape whose plain version was
-    timed, named with the profile and the engine ("@paper-ckks/db", the
-    sharded tables' "@paper-ckks/shard")."""
+def _ckks_rows(ckks: dict, engine: str = "db",
+               profile: str = CKKS_PROFILE) -> list:
+    """A path's kernel rows for the card line: each kernel the path
+    launched at its most-called shape whose plain version was timed,
+    named with the profile and the engine ("@paper-ckks/db", the sharded
+    tables' "@paper-ckks/shard", the FAE tables' "@paper-bfv/fae" and
+    "@paper-ckks/fae")."""
     src = "src/repro_torch/kernels/csrc"
 
     def row(name, source, replaces, shapes):
         top = max((s for s in shapes if "plain_ms" in s),
                   key=lambda s: s["calls"])
-        return {"name": f"{name}@{CKKS_PROFILE}/{engine}", "route": "cuda",
+        return {"name": f"{name}@{profile}/{engine}", "route": "cuda",
                 "source": f"{src}/{source}", "replaces": replaces,
                 "launches": ckks["launches"][name],
                 "max_abs_err": max(s.get("max_abs_err", 0) for s in shapes),
@@ -5801,13 +6540,57 @@ def _main_ckks(t_start: float) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     shard = phase_ckks_shard(ckks_base, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fae_b = phase_fae_ckks(ckks_base["ks"], rate)
     del ckks_base
     emit({"phase": "done", "mode": "ckks-phases",
           "seconds": time.perf_counter() - t_start,
           "ckks": _ckks_summary(ckks),
-          "ckks_shard": _ckks_shard_summary(shard)})
+          "ckks_shard": _ckks_shard_summary(shard),
+          "fae": {"b": _fae_summary(fae_b)}})
     _print_card_and_device(_ckks_rows(ckks)
-                           + _ckks_rows(shard["kernel_run"], "shard"))
+                           + _ckks_rows(shard["kernel_run"], "shard")
+                           + _ckks_rows(fae_b, "fae"))
+    return 0
+
+
+def _fae_summary(fae: dict) -> dict:
+    """A FAE part's checks, walls, rates, peaks and F2 figures."""
+    return {k: fae[k] for k in (
+        "exact", "shapes_equal", "launches_reconciled", "walls",
+        "queries_per_s", "inserts_per_s", "peak_mem_bytes", "peaks", "f2",
+        "key_noise", "differ_from_plain") if k in fae}
+
+
+def _main_fae(t_start: float) -> int:
+    """`python3 chip_smoke.py --fae-phases`: the build, then the FAE
+    parts alone: (a) on paper-bfv gadget keys made as the serve phase
+    makes them, over full hg38; (b) on paper-ckks gadget keys made as the
+    float phase makes them.  Ends with the card line, the parts' kernel
+    rows and the device record."""
+    import torch
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.params import make_params
+    from repro_torch.data import load_dataset
+    dev = torch.device("cuda", 0)
+    print(json.dumps({"phase": "start", "mode": "fae-phases",
+                      "torch": torch.__version__, "cuda": torch.version.cuda,
+                      "python": sys.version.split()[0]}), flush=True)
+    phase_build()
+    rate = int_mac_rate()
+    params = make_params(PROFILE, mode="gadget")
+    vals = load_dataset("hg38", scheme="bfv", t=params.t)
+    fae_a = phase_fae(keygen(params, SEED, device=dev), vals, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fae_b = phase_fae_ckks(keygen(make_params(CKKS_PROFILE, mode="gadget"),
+                                  SEED + 60, device=dev), rate)
+    emit({"phase": "done", "mode": "fae-phases",
+          "seconds": time.perf_counter() - t_start,
+          "fae": {"a": _fae_summary(fae_a), "b": _fae_summary(fae_b)}})
+    _print_card_and_device(_ckks_rows(fae_a, "fae", PROFILE)
+                           + _ckks_rows(fae_b, "fae"))
     return 0
 
 
@@ -5830,7 +6613,10 @@ def _main(t_start: float, dryrun: list) -> int:
     torch.cuda.empty_cache()
     wks, wtable, write = phase_write(dev, vals)
     paper = phase_paper(wks, wtable, write, rate)
-    del wtable                      # and the write table for the shard path
+    del wtable                      # and the write table for the FAE path
+    gc.collect()
+    torch.cuda.empty_cache()
+    fae_a = phase_fae(ks, vals, rate)
     gc.collect()
     torch.cuda.empty_cache()
     shard, shard_base = phase_shard(ks, vals, rate)
@@ -5852,6 +6638,9 @@ def _main(t_start: float, dryrun: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ckks_shard = phase_ckks_shard(ckks_base, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fae_b = phase_fae_ckks(ckks_base["ks"], rate)
     del ckks_base
     gc.collect()
     torch.cuda.empty_cache()
@@ -5889,6 +6678,7 @@ def _main(t_start: float, dryrun: list) -> int:
           "loop_shard": _loop_shard_summary(loop_shard),
           "ckks": _ckks_summary(ckks),
           "ckks_shard": _ckks_shard_summary(ckks_shard),
+          "fae": {"a": _fae_summary(fae_a), "b": _fae_summary(fae_b)},
           "lm": {"tokens_per_s": lm["tokens_per_s"],
                  "prefill_s": lm["prefill_s"], "decode_s": lm["decode_s"],
                  "f32_rel_err": lm["f32_card_vs_cpu"]["rel_err"],
@@ -5990,6 +6780,8 @@ def _main(t_start: float, dryrun: list) -> int:
                  lm["mul_shapes"], "var"),
         *_ckks_rows(ckks),
         *_ckks_rows(ckks_shard["kernel_run"], "shard"),
+        *_ckks_rows(fae_a, "fae", PROFILE),
+        *_ckks_rows(fae_b, "fae"),
     ])
     return 0
 

@@ -10,7 +10,8 @@ chunks on the card (`core.encrypt.enc_chunk_rows`).  Per-column streams
 come from `column_seed(seed, name)`, the counterpart of the reference's
 crc32-folded `column_key`: the column NAME, not its dict position, picks
 the stream.  Where a test must reproduce the reference's ciphertexts it
-passes the samples instead (`samples={column: (u, e0, e1)}`).
+passes the samples instead (`samples={column: (u, e0, e1)}`, and for a
+FAE column `(u, e0, e1, pert, e_m)`).
 
 WRITE PATH.  A table is mutable through `insert` / `update` / `delete`:
 
@@ -144,8 +145,11 @@ class Table:
         truncate).  `fae=True` uses perturbation-aware encryption
         (Alg. 3), which gives up exact Eq semantics by design.
         `samples` gives a column's pre-drawn (u, e0, e1) for all its
-        padded rows in place of its seeded stream.  Zero-length arrays
-        build an empty table (one all-pad slot)."""
+        padded rows in place of its seeded stream; under `fae=True` a
+        5-tuple (u, e0, e1, pert, e_m) also gives Alg. 3's perturbation
+        and payload noise (u, e0, e1 may then be None: drawn from the
+        stream).  Zero-length arrays build an empty table (one all-pad
+        slot)."""
         lengths = {c: len(v) for c, v in data.items()}
         n_rows = next(iter(lengths.values()))
         if any(v != n_rows for v in lengths.values()):
@@ -164,9 +168,16 @@ class Table:
             padded = pad_rows_pow2(
                 arr.astype(np.float64 if is_float else np.int64),
                 n_target=n_padded)
-            u, e0, e1 = (samples or {}).get(cname, (None, None, None))
+            drawn = tuple((samples or {}).get(cname, (None,) * 3))
+            if len(drawn) != (5 if fae and len(drawn) > 3 else 3):
+                raise ValueError(
+                    f"column {cname!r}: samples are (u, e0, e1)"
+                    + (" or (u, e0, e1, pert, e_m)" if fae else "")
+                    + f", got {len(drawn)} operands")
+            u, e0, e1, *fae_ops = drawn
             columns[cname] = enc(ks, padded, column_seed(seed, cname),
-                                 u=u, e0=e0, e1=e1)
+                                 u=u, e0=e0, e1=e1,
+                                 **dict(zip(("pert", "e_m"), fae_ops)))
         return cls(name, columns, n_rows)
 
     @classmethod
