@@ -38,8 +38,15 @@ Phases, each printing one JSON line:
                of scale·d0 + keymul must equal the gadget Eval kernel's
                residues (two independent kernels).  Then ntt_br in both
                directions against its plain version at keygen's
-               [8, 2, 4096], at [4, 2, 16384] (paper-ckks) and at the
-               keymul shapes, and the round trip.
+               [8, 2, 4096], at [1, 2, 16384], [4, 2, 16384] and
+               [8, 2, 16384] (paper-ckks key_br and keygen), at the keymul
+               shapes [8192, 2, 4096] and [1024, 2, 4096], at [33, 2,
+               4096] and at the row counts on each side of every change
+               of the card's plan (kernels/ntt.py) at both degrees, and
+               the round trip; each shape timed in its planned form
+               (cluster or wide) and as the C = 1 kernel of
+               tools/ntt_c1.cu (built beside the package's), in turns,
+               beside its bound and the empty-launch floor.
   7. write   — the paper-mode write path (paper_ecek_weight=0), after
                the gadget table is freed: keygen, the hg38 column
                encrypted, SortedIndex.build over all 34,423 rows, then
@@ -631,14 +638,31 @@ def _ptxas(log: str) -> list:
     return out
 
 
+def kernel_variants():
+    """`tools/kernel_variants.py`: the C = 1 ntt_br build (`start_c1`) and
+    the timing harness (`time_turns`, `ntt_call`)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import kernel_variants as KV
+    return KV
+
+
+# the C = 1 ntt_br library ("lib"), built by phase_build beside the
+# package's: ntt_br's forms are timed against it
+C1: dict = {}
+
+
 def phase_build() -> dict:
-    """Build every library; each kernel's registers and spills, and the
-    tensor-core instructions (IMMA) in the gadget Eval's machine code."""
+    """Build every library, and the C = 1 ntt_br of `tools/ntt_c1.cu`
+    beside them (all nvcc processes at once); each kernel's registers
+    and spills, and the tensor-core instructions (IMMA) in the gadget
+    Eval's machine code."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
+    c1_done = kernel_variants().start_c1(_build.BUILD_DIR / "ntt_c1")
     per_source = _build.build_all()
     for name in _build.SOURCES:
         _build.load(name)
+    C1["lib"] = c1_done()
     out = {"phase": "build", "seconds": time.perf_counter() - t0,
            "kernels": list(_build.SOURCES), "per_source_s": per_source}
     for name in _build.SOURCES:
@@ -1007,6 +1031,7 @@ def phase_keymul(ks, table, rate) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels import cmp_eval as CK
     from repro_torch.kernels import ntt as NK
+    from repro_torch.kernels import timing
 
     params, ring = ks.params, ks.ring
     K, n, D = params.num_towers, params.n, params.gadget_digits_per_tower
@@ -1037,10 +1062,22 @@ def phase_keymul(ks, table, rate) -> dict:
     ckks = make_params("paper-ckks")
     cring = R.make_ring(ckks, ks.device)
     digits = sampling.uniform_poly(params, gen, (rows * K * D,))
+    card = NK.card_shape(ks.device.index)
+    ck_pool = sampling.uniform_poly(
+        ckks, gen, (max(NK.plan_boundaries(K, ckks.n, *card)),))
+    # every shape of the ntt_br table in PERF.md, and the row counts on
+    # each side of every change of the card's plan at both degrees
     cases = [("keygen cek_gadget", ks.cek_gadget.reshape(-1, K, n), ring),
-             ("paper-ckks", sampling.uniform_poly(ckks, gen, (4,)), cring),
+             ("paper-ckks keygen cek", ck_pool[:8], cring),
+             ("paper-ckks key_br", ck_pool[:1], cring),
+             ("paper-ckks [4]", ck_pool[:4], cring),
              ("keymul digits", digits, ring),
-             ("keymul sum", digits[:rows], ring)]
+             ("keymul sum", digits[:rows], ring),
+             ("[33]", digits[:33], ring),
+             *((f"edge {r}", digits[:r], ring)
+               for r in NK.plan_boundaries(K, n, *card)),
+             *((f"paper-ckks edge {r}", ck_pool[:r], cring)
+               for r in NK.plan_boundaries(K, ckks.n, *card))]
     eq, errs = True, []
     for _, x, rg in cases:
         for fwd in (True, False):
@@ -1051,29 +1088,65 @@ def phase_keymul(ks, table, rate) -> dict:
             errs.append(max_abs_err(got, want))
         eq &= torch.equal(NK.ntt_br(NK.ntt_br(x, rg), rg, fwd=False), x)
     torch.cuda.synchronize()
-    # times at the keymul path's shapes: forward over its K*D digit
-    # polynomials per lane, inverse over one polynomial per lane
+    floor = timing.launch_floor(ks.device)
+    shapes = [ntt_form_times(name, x, rg, fwd, rate)
+              for name, x, rg in cases for fwd in (True, False)]
+    # the kernels line's times at the keymul path's shapes: forward over
+    # its K*D digit polynomials per lane, inverse over one per lane
     timed = {}
     for name, x, fwd in (("fwd", digits, True), ("inv", digits[:rows], False)):
-        timed[name] = {
-            "shape": list(x.shape),
-            "ms": time_cuda(lambda: NK.ntt_br(x, ring, fwd=fwd), 10),
-            "plain_ms": time_cuda(
-                lambda: NK.ntt_br_plain(x, ring, fwd=fwd), 1),
-            **ntt_bound(x.shape[0], K, n, rate)}
+        got = next(t for t in shapes
+                   if t["shape"] == list(x.shape) and t["fwd"] == fwd)
+        timed[name] = {**got, "plain_ms": time_cuda(
+            lambda: NK.ntt_br_plain(x, ring, fwd=fwd), 1)}
     timed["fwd_keygen_ms"] = time_cuda(
         lambda: NK.ntt_br(cases[0][1], ring), 20)
-    del digits, cases
+    timed["fwd_keygen_device_ms"] = shapes[0]["ms"]
+    del digits, cases, ck_pool
     torch.cuda.empty_cache()
     out = {"phase": "keymul", "lanes": rows, "cross_equal": cross_equal,
            "keymul_s": keymul_s, "launches": launches, "ntt_equal": eq,
-           "max_abs_err": max(errs), "ntt_cases": len(errs), **timed}
+           "max_abs_err": max(errs), "ntt_cases": len(errs),
+           "launch_floor": floor, "ntt_shapes": shapes, **timed}
     emit(out)
     require(cross_equal, "coeff0 of gadget_keymul != the gadget Eval")
     require(eq, f"ntt_br kernel != plain (max |err| {errs})")
+    require(all(t["c1_equal"] for t in shapes),
+            "the C = 1 ntt_br (tools/ntt_c1.cu) != plain")
+    require(floor["saturated"] and all(
+        t["saturated"] for t in shapes if "saturated" in t),
+        "a host-time batch of ntt_br outlasted the card's sleep")
     require(all(launches[k] > 0 for k in KEYMUL_KERNELS),
             f"an NTT kernel never launched on the keymul path: {launches}")
     return out
+
+
+def ntt_form_times(name, x, ring, fwd: bool, rate) -> dict:
+    """ntt_br at x's shape in the card's planned form and as the C = 1
+    kernel (`tools/ntt_c1.cu`, one block per (polynomial, tower), the
+    design before the cluster and wide forms), that one held against the
+    plain version, timed in turns (C = 1, planned, planned, C = 1) by
+    `tools/kernel_variants.py::time_turns` beside the bound: where a
+    call moves less than 64 MiB (there the host's launch is as long as
+    the kernel) the device time by CUDA-graph replay, with the planned
+    form's host time and events time (`timing.split`), above it CUDA
+    events."""
+    import torch
+    from repro_torch.kernels import ntt as NK
+    KV = kernel_variants()
+    K, n = x.shape[-2:]
+    rows = int(np.prod(x.shape[:-2]))
+    launch = NK.plan(rows, K, n, *NK.card_shape(x.device.index), fwd=fwd)
+    c1 = KV.ntt_call(C1["lib"].hades_ntt_br_c1, x, ring, fwd)
+    c1_equal = bool(torch.equal(c1(), NK.ntt_br_plain(x, ring, fwd=fwd)))
+    t = KV.time_turns({"c1": c1,
+                       "planned": lambda: NK.ntt_br(x, ring, fwd=fwd)},
+                      16 * rows * K * n, split="planned")
+    ms, c1_ms = t.pop("planned_ms"), t.pop("c1_ms")
+    return {"case": name, "shape": list(x.shape), "fwd": fwd,
+            "plan": list(launch), "ms": ms, "c1_ms": c1_ms,
+            "vs_c1": ms / c1_ms, "c1_equal": c1_equal, **t,
+            **ntt_bound(rows, K, n, rate)}
 
 
 def phase_write(dev, vals) -> tuple:
@@ -3683,7 +3756,9 @@ def _lattice(rng, n: int) -> np.ndarray:
 def check_ntt_calls(calls: dict, launches: dict, rate) -> dict:
     """`ntt_br` against its plain version at every distinct call
     `record_calls(("ntt_br",))` recorded (`check_calls`), each timed by
-    CUDA events beside its bound, on the card that holds its operand."""
+    CUDA events beside its bound and beside the C = 1 kernel
+    (`tools/ntt_c1.cu`), on the card that holds its operand, with the
+    plan that card gives it."""
     import torch
     from repro_torch.kernels import ntt as NK
     checked = check_calls(calls, {k: launches[k] for k in
@@ -3695,10 +3770,22 @@ def check_ntt_calls(calls: dict, launches: dict, rate) -> dict:
         # a KeySet replica's transforms run on its own card: time there
         with (torch.cuda.device(x.device) if x.is_cuda
               else contextlib.nullcontext()):
+            rows = int(np.prod(x.shape[:-2]))
+            plan = (list(NK.plan(rows, K, n, *NK.card_shape(
+                x.device.index), fwd=fwd)) if x.is_cuda else None)
+            c1 = (kernel_variants().ntt_call(
+                C1["lib"].hades_ntt_br_c1, x, ring, fwd) if x.is_cuda
+                else None)
+            # both in turns by device time too (graph replay below 64
+            # MiB): 5 back-to-back calls by events time the host's path
+            turns = (kernel_variants().time_turns(
+                {"c1": c1, "planned": lambda: NK.ntt_br(x, ring, fwd=fwd)},
+                16 * rows * K * n) if c1 else {})
             timed.append({
                 "kernel": counter, "device": str(x.device),
-                "shape": list(x.shape), "calls": n_calls,
+                "shape": list(x.shape), "calls": n_calls, "plan": plan,
                 "ms": time_cuda(lambda: NK.ntt_br(x, ring, fwd=fwd), 5),
+                "c1_ms": time_cuda(c1, 5) if c1 else None, "turns": turns,
                 "plain_ms": time_cuda(
                     lambda: NK.ntt_br_plain(x, ring, fwd=fwd), 1),
                 **ntt_bound(int(np.prod(x.shape[:-2])), K, n, rate)})

@@ -49,7 +49,7 @@ ENTRIES: Dict[str, Dict[str, list]] = {
                                  _P],
         "hades_negacyclic_mul_ntt": [_P, _L, _P, _P, _L, _P, _P, _I, _I,
                                      _P],
-        "hades_ntt_br": [_P, _P, _L, _P, _P, _I, _I, _I, _P],
+        "hades_ntt_br": [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 SOURCES = tuple(ENTRIES)

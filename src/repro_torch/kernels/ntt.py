@@ -14,11 +14,22 @@ bit-reversed -> natural) on its own.  On CUDA tensors they launch
 `_ntt_kernel` and `_intt_kernel`); on CPU tensors they run the `_plain`
 versions, the same schedule in PyTorch.  Inputs must be residues in
 [0, q).
+
+`ntt_br` launches one of two forms of the same schedule, chosen by
+`plan` from the number of (polynomial, tower) items and the card's SM
+count and shared memory (read once per card): at n >= 16,384 with fewer
+items than SMs, the narrow form, each item split over the CLUSTER blocks
+of a thread-block cluster; otherwise the wide form, a resident grid of
+blocks walking the items (one block per item below a wave), with the
+next row's coefficients copied into shared memory while the current one
+runs (the inverse always, the forward at n <= 4,096 from two items a
+block).  The output is the same in either form.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -90,6 +101,83 @@ def _check_poly(x: torch.Tensor, ring: R.Ring) -> None:
         raise ValueError(f"operand on {x.device}, ring on {ring.device}")
 
 
+class Plan(NamedTuple):
+    """An `ntt_br` launch: `cluster` CLUSTER, the narrow form, with
+    `depth` 0; or `cluster` 0, the wide form, with `depth` rows staged
+    ahead a block (0 or 1)."""
+    cluster: int
+    depth: int
+
+
+CLUSTER = 8                 # blocks of the narrow form (ntt.cu kCluster)
+CLUSTER_MIN_N = 16384       # the least degree it splits few items at
+WIDE_BLOCKS_PER_SM = 2      # the wide kernel's blocks a SM (launch bounds)
+
+
+def wide_smem(n: int, depth: int) -> int:
+    """Bytes of shared memory a wide-form block takes at degree n."""
+    return depth * 8 * n + 4 * (n + n // 32)
+
+
+def wide_depth(n: int, fwd: bool, items: int, sms: int,
+               smem_limit: int) -> Optional[int]:
+    """Rows the wide form stages ahead for `items` items of degree n on a
+    card of `sms` SMs and `smem_limit` bytes of shared memory a block:
+    the inverse one wherever it fits a block (its first pass then reads
+    shared memory, not a strided loop over device memory); the forward
+    one only at n <= 4,096 and where every block runs at least two items
+    (a block's first item has nothing to overlap its copy with, and at
+    n = 16,384 a staged row of 128 KB would leave one block a SM); None
+    where even the working polynomial does not fit a block."""
+    blocks = WIDE_BLOCKS_PER_SM * sms
+    depth = 1 if not fwd or (n <= 4096 and items >= 2 * blocks) else 0
+    while depth >= 0 and wide_smem(n, depth) > smem_limit:
+        depth -= 1
+    return depth if depth >= 0 else None
+
+
+def plan(rows: int, K: int, n: int, sms: int, smem_limit: int,
+         fwd: bool = True) -> Optional[Plan]:
+    """The launch of one direction for `rows` x K items of degree n on a
+    card of `sms` SMs and `smem_limit` bytes of shared memory a block;
+    None when there is nothing to launch.  Fewer items than SMs at n >=
+    CLUSTER_MIN_N, or a polynomial whose wide form does not fit a block,
+    split each item over a cluster of CLUSTER blocks; everything else
+    runs the wide form, one block per item below a wave."""
+    items = rows * K
+    if items == 0:
+        return None
+    depth = wide_depth(n, fwd, items, sms, smem_limit)
+    if depth is not None and (n < CLUSTER_MIN_N or items >= sms):
+        return Plan(0, depth)
+    return Plan(CLUSTER, 0)
+
+
+def plan_boundaries(K: int, n: int, sms: int, smem_limit: int) -> list:
+    """Row counts on each side of every change of the forward or inverse
+    `plan` at (K, n) on such a card, and of the wide form's first full
+    wave of blocks (from the next row on, a block runs more than one
+    item)."""
+    wave = WIDE_BLOCKS_PER_SM * sms // K
+    out = [wave, wave + 1]
+    for fwd in (True, False):
+        last = plan(1, K, n, sms, smem_limit, fwd)
+        for rows in range(2, 2 * wave + 2):
+            cur = plan(rows, K, n, sms, smem_limit, fwd)
+            if cur != last:
+                out += [rows - 1, rows]
+            last = cur
+    return sorted(set(out))
+
+
+@functools.lru_cache(maxsize=None)
+def card_shape(index: int) -> tuple:
+    """(SMs, opt-in shared memory a block in bytes) of CUDA card `index`,
+    read once per card."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
 def ntt_br(x: torch.Tensor, ring: R.Ring, *, fwd: bool = True
            ) -> torch.Tensor:
     """Forward (natural -> bit-reversed, with the psi pre-twist) or
@@ -102,15 +190,21 @@ def ntt_br(x: torch.Tensor, ring: R.Ring, *, fwd: bool = True
     K, n = ring.num_towers, ring.n
     rows = math.prod(x.shape[:-2])
     src = x.reshape(rows, K, n).contiguous()
+    if src.data_ptr() % 16:         # the wide form copies 16 bytes a time
+        src = src.clone()
     out = torch.empty_like(src)
+    if rows == 0:
+        return out.reshape(x.shape)
+    index = x.device.index
+    launch = plan(rows, K, n, *card_shape(index), fwd=fwd)
     lib = _build.load("ntt")
-    with _build.on_device(x.device.index):
+    with _build.on_device(index):
         rc = lib.hades_ntt_br(src.data_ptr(), out.data_ptr(), rows,
                               ring.shoup.data_ptr(), ring.q_arr.data_ptr(),
-                              K, n, int(fwd), _build.stream_handle(x.device))
+                              K, n, int(fwd), launch.cluster, launch.depth,
+                              _build.stream_handle(x.device))
     _build.check(rc, "ntt_br")
-    if rows:
-        _build.count_launch("ntt_br_fwd" if fwd else "ntt_br_inv")
+    _build.count_launch("ntt_br_fwd" if fwd else "ntt_br_inv")
     return out.reshape(x.shape)
 
 

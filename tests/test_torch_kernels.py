@@ -7,8 +7,10 @@ The CUDA kernels themselves run only on a card: their tests carry the
 `gpu` marker and skip without one (`python3 chip_smoke.py` holds them
 against the plain versions on the card at the served shapes).
 """
+import dataclasses
 import functools
 import importlib
+import itertools
 import os
 import pkgutil
 import shutil
@@ -545,7 +547,7 @@ def test_build_sources_and_missing_compiler(tmp_path, monkeypatch):
         assert _build._lib_path(name).parent == _build.BUILD_DIR
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {
-        "modarith.cuh", "ntt_stages.cuh"}
+        "modarith.cuh", "ntt_split.cuh", "ntt_stages.cuh"}
     # a header change renames every library (no stale .so is loaded)
     for f in _build.CSRC.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
@@ -626,6 +628,215 @@ def test_modarith_helpers_host_build(tmp_path):
             arr = (ctypes.c_uint64 * 4)(*acc)
             want = sum(a << (8 * b) for b, a in enumerate(acc)) % q
             assert lib.probe_recombine(arr, q) == want
+
+
+_SPLIT_PROBE = r"""
+#include <vector>
+#include "ntt_split.cuh"
+
+using hades::pair32;
+
+// The local stages of one block, stage by stage, each twiddle indexed by
+// the LOCAL index mod h (ntt_split.cuh: the device's register passes over
+// a block of nc coefficients with the whole polynomial's tables).
+static void local_dif(uint32_t* x, int nc, const pair32* w, uint32_t q) {
+  for (int h = nc / 2; h >= 1; h /= 2)
+    for (int b = 0; b < nc; b += 2 * h)
+      for (int j = 0; j < h; ++j) {
+        const pair32 t = w[h + ((b + j) & (h - 1))];
+        const uint32_t u = x[b + j], v = x[b + j + h];
+        x[b + j] = hades::addmod(u, v, q);
+        x[b + j + h] = hades::mul_shoup(u + q - v, t.x, t.y, q);
+      }
+}
+
+static void local_dit(uint32_t* x, int nc, const pair32* w, uint32_t q) {
+  for (int h = 1; h < nc; h *= 2)
+    for (int b = 0; b < nc; b += 2 * h)
+      for (int j = 0; j < h; ++j) {
+        const pair32 t = w[h + ((b + j) & (h - 1))];
+        const uint32_t u = x[b + j];
+        const uint32_t tv = hades::mul_shoup(x[b + j + h], t.x, t.y, q);
+        x[b + j] = hades::addmod(u, tv, q);
+        x[b + j + h] = hades::submod(u, tv, q);
+      }
+}
+
+// One (polynomial, tower) through the split over C blocks, the blocks
+// run in turn: 0 on success, 1 if a group is run twice or never, 2 if
+// the index map does not invert.
+template <int C>
+static int run(const int64_t* x, int64_t* out, const pair32* t, uint32_t q,
+               int n, int fwd) {
+  int log_n = 0;
+  while ((1 << log_n) < n) ++log_n;
+  const hades::Split sp{C, log_n - hades::CrossLog2<C>::value};
+  const int nc = sp.nc();
+  const pair32 *psi = t, *psi_inv = t + n, *wf = t + 2 * n, *wi = t + 3 * n;
+  std::vector<uint32_t> mem(n);      // block m's shared memory at m nc
+  std::vector<int> seen(nc, 0);
+  for (int i = 0; i < n; ++i)
+    if (sp.global(sp.block_of(i), sp.local_of(i)) != i) return 2;
+  if (!fwd) {
+    for (int i = 0; i < n; ++i) mem[i] = (uint32_t)x[i];
+    for (int m = 0; m < C; ++m) local_dit(&mem[m * nc], nc, wi, q);
+  }
+  for (int r = 0; r < C; ++r)
+    for (int j = sp.group_begin(r); j < sp.group_begin(r + 1); ++j) {
+      uint32_t v[C];
+      ++seen[j];
+      if (fwd) {
+        hades::cross_fwd<C>(v, j, sp.log_nc, x, psi, wf, q);
+        for (int m = 0; m < C; ++m) mem[sp.global(m, j)] = v[m];
+      } else {
+        for (int m = 0; m < C; ++m) v[m] = mem[sp.global(m, j)];
+        hades::cross_inv<C>(v, j, sp.log_nc, out, psi_inv, wi, q);
+      }
+    }
+  for (int j = 0; j < nc; ++j)
+    if (seen[j] != 1) return 1;
+  if (fwd) {
+    for (int m = 0; m < C; ++m) local_dif(&mem[m * nc], nc, wf, q);
+    for (int i = 0; i < n; ++i) out[i] = mem[i];
+  }
+  return 0;
+}
+
+extern "C" int probe_split(const int64_t* x, int64_t* out,
+                           const uint32_t* tab, uint32_t q, int n, int C,
+                           int fwd) {
+  const pair32* t = reinterpret_cast<const pair32*>(tab);
+  switch (C) {
+    case 1: return run<1>(x, out, t, q, n, fwd);
+    case 2: return run<2>(x, out, t, q, n, fwd);
+    case 4: return run<4>(x, out, t, q, n, fwd);
+    case 8: return run<8>(x, out, t, q, n, fwd);
+    case 16: return run<16>(x, out, t, q, n, fwd);
+  }
+  return 3;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def split_probe(tmp_path_factory):
+    """`csrc/ntt_split.cuh` built for the host with g++."""
+    import ctypes
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    tmp = tmp_path_factory.mktemp("split_probe")
+    (tmp / "probe.cpp").write_text(_SPLIT_PROBE)
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                    f"-I{_build.CSRC}", "-o", str(tmp / "probe.so"),
+                    str(tmp / "probe.cpp")], check=True, timeout=120)
+    lib = ctypes.CDLL(str(tmp / "probe.so"))
+    p = ctypes.c_void_p
+    lib.probe_split.argtypes = [p, p, p, ctypes.c_uint32, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int]
+    lib.probe_split.restype = ctypes.c_int
+    return lib
+
+
+def _degree_params(primes: str, n: int):
+    """Port params at degree n: the test-bfv profile's own primes for n
+    (`sweep_params`), or paper-ckks's primes (NTT-friendly up to n =
+    16,384) with n swapped in."""
+    if primes == "test-bfv":
+        return sweep_params(n, 1)[1]
+    ck = torch_make_params("paper-ckks")
+    return dataclasses.replace(
+        ck, profile=dataclasses.replace(ck.profile, n=n,
+                                        name=f"paper-ckks-{n}"))
+
+
+@pytest.mark.parametrize("primes", ["test-bfv", "paper-ckks"])
+@pytest.mark.parametrize("n", [64, 4096, 16384])
+def test_ntt_split_host_build_equals_plain(split_probe, n, primes, rng):
+    """The narrow form's split (`csrc/ntt_split.cuh`: the index map and
+    the cross pass, __host__ __device__) built for the host and run over
+    C simulated cluster blocks in turn, the cross pass and then each
+    block's local stages with its local twiddle index, equals
+    `ntt_br_plain` exactly in both directions, for every cluster size."""
+    params = _degree_params(primes, n)
+    ring = TR.make_ring(params, "cpu")
+    K = ring.num_towers
+    x = t_(rng.integers(0, np.asarray(params.qs)[:, None], size=(K, n)))
+    tab = ring.shoup.numpy().view(np.uint32)            # [K, 4, n, 2]
+    for fwd in (True, False):
+        want = TNK.ntt_br_plain(x, ring, fwd=fwd).numpy()
+        for C in (1, 2, 4, 8, 16):
+            got = np.zeros((K, n), np.int64)
+            for k in range(K):
+                xk = np.ascontiguousarray(x[k].numpy())
+                tk = np.ascontiguousarray(tab[k])
+                rc = split_probe.probe_split(
+                    xk.ctypes.data, got[k].ctypes.data, tk.ctypes.data,
+                    params.qs[k], n, C, int(fwd))
+                assert rc == 0, (C, fwd, rc)
+            assert np.array_equal(got, want), (n, primes, C, fwd)
+
+
+# (SMs, opt-in shared memory a block): H100 SXM and PCIe, A100, an
+# sm_86 card, a small card at the 48 KB every CUDA card gives, and one
+# SM of an H100
+PLAN_CARDS = [(132, 232448), (114, 232448), (108, 166912), (84, 101376),
+              (8, 49152), (1, 232448)]
+
+
+@pytest.mark.parametrize("sms,smem", PLAN_CARDS)
+def test_ntt_br_plan_invariants(sms, smem):
+    """`kernels.ntt.plan` over a table of shapes and cards: nothing to
+    launch at 0 rows; the narrow form (clusters of CLUSTER blocks of at
+    least 256 coefficients, as the kernel requires, that fit the card's
+    shared memory) only for fewer items than SMs at n >= CLUSTER_MIN_N
+    or where the wide form's shared memory does not fit a block;
+    everywhere else the wide form at its degree's and direction's depth,
+    within the card's shared memory."""
+    for n in (32, 64, 256, 512, 1024, 4096, 8192, 16384, 32768, 65536):
+        for K in (1, 2, 3):
+            assert TNK.plan(0, K, n, sms, smem) is None
+            for fwd, rows in itertools.product(
+                    (True, False), (1, 2, 3, 4, 5, 8, 9, 16, 17, 33, 65, 66,
+                                    131, 132, 263, 264, 1000, 8192)):
+                items = rows * K
+                depth = TNK.wide_depth(n, fwd, items, sms, smem)
+                got = TNK.plan(rows, K, n, sms, smem, fwd)
+                narrow = depth is None or (n >= TNK.CLUSTER_MIN_N
+                                           and items < sms)
+                if narrow:
+                    assert got == TNK.Plan(TNK.CLUSTER, 0), (rows, K, n)
+                    nc = n // TNK.CLUSTER
+                    assert nc >= 256 and 4 * (nc + nc // 32) <= smem
+                else:
+                    assert got == TNK.Plan(0, depth), (rows, K, n, got)
+                    assert depth in (0, 1)
+                    assert TNK.wide_smem(n, depth) <= smem
+    assert TNK.wide_depth(65536, True, 1, 132, 232448) is None
+    # the forward stages a row only from two items a block at n <= 4,096
+    assert TNK.wide_depth(4096, True, 2 * 264, 132, 232448) == 1
+    assert TNK.wide_depth(4096, True, 2 * 264 - 1, 132, 232448) == 0
+    assert TNK.wide_depth(16384, True, 16384, 132, 232448) == 0
+    assert TNK.wide_depth(4096, False, 1, 132, 232448) == 1
+    assert TNK.wide_depth(16384, False, 1, 132, 232448) == 1
+    assert TNK.wide_depth(32768, False, 1, 132, 232448) == 0
+    # a smaller opt-in leaves the inverse at n = 16,384 unstaged
+    assert TNK.wide_depth(16384, False, 1, 108, 166912) == 0
+    assert TNK.plan(200, 2, 16384, 108, 166912, fwd=False) == TNK.Plan(0, 0)
+    # the paths' shapes on an H100 (132 SMs, 227 KB a block)
+    h100 = (132, 232448)
+    assert TNK.plan(1, 2, 16384, *h100) == TNK.Plan(8, 0)
+    assert TNK.plan(8, 2, 16384, *h100) == TNK.Plan(8, 0)
+    assert TNK.plan(66, 2, 16384, *h100) == TNK.Plan(0, 0)
+    assert TNK.plan(66, 2, 16384, *h100, fwd=False) == TNK.Plan(0, 1)
+    assert TNK.plan(1, 2, 65536, *h100) == TNK.Plan(8, 0)
+    for rows in (1, 33, 263):
+        assert TNK.plan(rows, 2, 4096, *h100) == TNK.Plan(0, 0)
+    for rows in (1, 33, 263, 264, 1024, 8192):
+        assert TNK.plan(rows, 2, 4096, *h100, fwd=False) == TNK.Plan(0, 1)
+    for rows in (264, 1024, 8192):
+        assert TNK.plan(rows, 2, 4096, *h100) == TNK.Plan(0, 1)
+    assert TNK.plan_boundaries(2, 4096, *h100) == [132, 133, 263, 264]
+    assert TNK.plan_boundaries(2, 16384, *h100) == [65, 66, 132, 133]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -803,7 +1014,8 @@ def test_cuda_wrappers_launch_on_operands_card():
     """With card 0 current, every kernel wrapper called on operands on
     card j >= 1 launches there (its C entry runs with card j current and
     on card j's stream) and returns there, equal to its plain version on
-    the CPU (tolerance 0): `ntt_br` both ways, `negacyclic_mul`,
+    the CPU (tolerance 0): `ntt_br` both ways in the cluster and wide
+    forms (each planned from card j's own shape), `negacyclic_mul`,
     `negacyclic_mul_ntt` on a `KeySet.replica`'s key transform (itself
     made by the forward `ntt_br` on card j), the paper Eval's wide and
     cluster-split forms and the gadget Eval; card 0 is current again
@@ -849,6 +1061,24 @@ def test_cuda_wrappers_launch_on_operands_card():
                     TNK.negacyclic_mul_ntt_plain(a, key_br.cpu(),
                                                  cpu_ring)),
                 "key_br": (key_br, gks.key_br("pk1")[0].cpu())}
+            # the narrow form (one paper-ckks polynomial: a cluster on
+            # card j's own plan) and the wide form (300 test-bfv rows)
+            big = torch_make_params("paper-ckks")
+            bq = torch.tensor(big.qs, dtype=torch.int64)
+            xb = torch.randint(0, 1 << 62, (1, big.num_towers, big.n),
+                               generator=gen) % bq[:, None]
+            assert TNK.plan(1, big.num_towers, big.n, *TNK.card_shape(
+                j)).cluster == TNK.CLUSTER
+            bring, bcpu = TR.make_ring(big, dev), TR.make_ring(big, "cpu")
+            wide = rand(300)
+            assert TNK.plan(300, K, n, *TNK.card_shape(j)).cluster == 0
+            for fwd in (True, False):
+                cases[f"ntt_br_cluster_{fwd}"] = (
+                    TNK.ntt_br(xb.to(dev), bring, fwd=fwd),
+                    TNK.ntt_br_plain(xb, bcpu, fwd=fwd))
+                cases[f"ntt_br_wide_{fwd}"] = (
+                    TNK.ntt_br(wide.to(dev), g.ring, fwd=fwd),
+                    TNK.ntt_br_plain(wide, cpu_ring, fwd=fwd))
             assert torch.cuda.current_device() == 0
             pargs = (w.ring.q_arr[:, 0], w.params.scale)
             for lanes in (TCK.paper_wide_lanes(), 5):   # wide, split
@@ -876,3 +1106,62 @@ def test_cuda_wrappers_launch_on_operands_card():
                 assert torch.equal(got.cpu(), want), (dev, name)
             assert all(v > 0 for v in _build.LAUNCHES.values()), (
                 dev, dict(_build.LAUNCHES))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", ["test-bfv", "paper-bfv", "paper-ckks"])
+def test_cuda_ntt_br_forms_equal_plain(cuda, profile):
+    """`ntt_br` byte-equal to its plain version in both directions, with
+    the round trip the identity and one launch a call: at 1 and 3 rows,
+    at the row counts on each side of every change of this card's plan
+    and past the wide form's staging threshold, which between them reach
+    every form the plan takes at this degree; and on an operand that is
+    not 16-byte aligned.  A form the kernel does not take is refused by
+    its C entry."""
+    p = torch_make_params(profile)
+    ring = TR.make_ring(p, cuda)
+    K, n = p.num_towers, p.n
+    card = TNK.card_shape(cuda.index)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(25)
+    top = 4 * card[0] // K + 1          # two items a block of two a SM
+    x = torch.randint(0, 1 << 62, (top, K, n), generator=gen,
+                      device=cuda) % ring.q_arr
+    plans = set()
+
+    def check(rows, operand=None):
+        xs = x[:rows] if operand is None else operand
+        for fwd in (True, False):
+            plans.add(TNK.plan(rows, K, n, *card, fwd))
+            counter = "ntt_br_fwd" if fwd else "ntt_br_inv"
+            before = _build.LAUNCHES[counter]
+            got = TNK.ntt_br(xs, ring, fwd=fwd)
+            assert _build.LAUNCHES[counter] == before + 1
+            want = TNK.ntt_br_plain(xs, ring, fwd=fwd)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (rows, fwd)
+        back = TNK.ntt_br(TNK.ntt_br(xs, ring), ring, fwd=False)
+        torch.cuda.synchronize()
+        assert torch.equal(back, xs), rows
+
+    for rows in sorted({1, 3, top, *TNK.plan_boundaries(K, n, *card)}):
+        check(rows)
+    forms = {TNK.Plan(0, 0), TNK.Plan(0, 1)}
+    if n >= TNK.CLUSTER_MIN_N:
+        forms.add(TNK.Plan(TNK.CLUSTER, 0))
+    assert plans == forms, plans
+    flat = torch.empty(3 * K * n + 1, dtype=torch.int64, device=cuda)
+    odd = flat[1:].view(3, K, n)
+    odd.copy_(x[:3])
+    assert odd.data_ptr() % 16
+    check(3, operand=odd)
+    lib = _build.load("ntt")
+    out = torch.empty_like(x[:1])
+    bad = [(3, 0), (TNK.CLUSTER, 1), (2 * TNK.CLUSTER, 0), (0, 2), (1, 0)]
+    if n // TNK.CLUSTER < 256:
+        bad.append((TNK.CLUSTER, 0))
+    for form in bad:
+        rc = lib.hades_ntt_br(x.data_ptr(), out.data_ptr(), 1,
+                              ring.shoup.data_ptr(), ring.q_arr.data_ptr(),
+                              K, n, 1, *form, _build.stream_handle(cuda))
+        assert rc != 0, form
