@@ -62,6 +62,18 @@ class CompactionStats:
             1 + max(1, block.bit_length() - 1))
 
 
+def row_bytes(ks: KeySet) -> int:
+    """Bytes of one ciphertext row: c0 and c1, K towers of n int64."""
+    return 2 * 8 * ks.params.num_towers * ks.params.n
+
+
+def _moved(sp, phase: str, nbytes: int) -> None:
+    """Give a compaction phase's span its `bytes=` and add them to
+    `compact.bytes{phase=...}` (both no-ops when tracing is off)."""
+    sp.set(bytes=nbytes)
+    obs.count("compact.bytes", nbytes, phase=phase)
+
+
 def merge_index_runs(ks: KeySet, base: SortedIndex, delta: SortedIndex,
                      *, id_offset: int) -> Tuple[SortedIndex, int]:
     """Merge a base index run with a delta run into one `SortedIndex`.
@@ -79,11 +91,16 @@ def merge_index_runs(ks: KeySet, base: SortedIndex, delta: SortedIndex,
                            delta.perm + id_offset,
                            build_compares=carried), 0
     L = C.next_pow2(max(base.n_rows, delta.n_rows))
-    with obs.span("compact.merge_index", column=base.column, block=L):
-        ct, ids = M.pad_shard_blocks(
-            ks, [(base.sorted_ct, base.perm),
-                 (delta.sorted_ct, delta.perm + id_offset)],
-            block=L, pad_value=ks.params.max_operand // 2, num_blocks=2)
+    m, rb = base.n_rows + delta.n_rows, row_bytes(ks)
+    with obs.span("compact.merge_index", column=base.column,
+                  block=L) as msp:
+        with obs.span("compact.pad_blocks") as psp:
+            ct, ids = M.pad_shard_blocks(
+                ks, [(base.sorted_ct, base.perm),
+                     (delta.sorted_ct, delta.perm + id_offset)],
+                block=L, pad_value=ks.params.max_operand // 2, num_blocks=2)
+        # the runs read and written into the blocks, the sentinels written
+        _moved(psp, "pad_blocks", rb * (2 * m + (2 * L - m)))
         gid = torch.as_tensor(ids, device=ct.c0.device)
         c0, c1, gid, compares = M.merge_sorted_runs(
             ks, fae_comparator(ks), ct.c0, ct.c1, gid, run=L)
@@ -92,6 +109,8 @@ def merge_index_runs(ks: KeySet, base: SortedIndex, delta: SortedIndex,
         kt = torch.as_tensor(keep, device=c0.device)
         sorted_ct = Ciphertext(c0[kt], c1[kt])
         del ct, c0, c1
+        # the merge's stages, then the kept rows gathered
+        _moved(msp, "merge_index", rb * (4 * compares + 2 * m))
     merged = SortedIndex(base.column, sorted_ct, gid[keep],
                          build_compares=carried)
     merged.search_compares = base.search_compares + delta.search_compares
@@ -107,7 +126,8 @@ def compact(ks: KeySet, table, indexes: Optional[Dict] = None,
     shard_mod = sys.modules.get("repro_torch.db.shard.table")
     if shard_mod is not None and isinstance(table, shard_mod.ShardedTable):
         with obs.span("compact", shards=table.num_shards,
-                      n_delta=table.n_delta):
+                      n_delta=table.n_delta), \
+                obs.count_mallocs("compact", ks.device):
             stats = _compact_sharded(ks, table, indexes)
         obs.absorb_compaction_stats(stats)
         return stats
@@ -115,10 +135,18 @@ def compact(ks: KeySet, table, indexes: Optional[Dict] = None,
     stats = CompactionStats(n_base=table.n_rows, n_delta=table.n_delta)
     if not table.has_delta:
         return stats
-    with obs.span("compact", n_base=table.n_rows, n_delta=table.n_delta):
+    with obs.span("compact", n_base=table.n_rows, n_delta=table.n_delta), \
+            obs.count_mallocs("compact", ks.device):
         n_new = table.n_rows + table.n_delta
         for col in list(indexes):
-            didx = table.delta_index(ks, col)
+            cached = table._delta_index_cache.get(col)
+            fresh = not (cached is not None and cached[0] == table.version)
+            with obs.span("compact.delta_index", column=col,
+                          fresh=fresh) as dsp:
+                didx = table.delta_index(ks, col)
+            # a compare-exchange reads and writes its two rows once
+            _moved(dsp, "delta_index",
+                   4 * didx.build_compares * row_bytes(ks) if fresh else 0)
             merged, compares = merge_index_runs(ks, indexes[col], didx,
                                                 id_offset=table.n_rows)
             indexes[col] = merged
@@ -126,7 +154,12 @@ def compact(ks: KeySet, table, indexes: Optional[Dict] = None,
             stats.merge_rounds += 1
             stats.indexes_merged += 1
             stats.rebuild_compares += C.bitonic_compare_count(n_new)
-        folded = append_rows(ks, table, table.delta, table.zero_pad_rows)
+        n_pad = C.next_pow2(n_new)
+        with obs.span("compact.fold", rows=n_new, slots=n_pad) as fsp:
+            folded = append_rows(ks, table, table.delta, table.zero_pad_rows)
+        # a column's rows and pad rows read, its pad rows and slots written
+        _moved(fsp, "fold", row_bytes(ks) * len(folded.columns)
+               * (3 * n_pad - n_new))
         table.columns = folded.columns
         table.n_rows = folded.n_rows
         table.delta = None

@@ -138,15 +138,21 @@ def fused_eval(ks: KeySet, table: Table, atoms: List[P.Atom], *,
         out = np.empty((A, W), dtype=np.int64)
         for lo in range(0, W, T):
             t = min(T, W - lo)
-            with obs.span("executor.eval_tile", offset=lo, rows=t) as tsp:
-                obs.jit_launch("executor.fused_eval", uniq.c0[:, lo:lo + t],
-                               bounds.c0)
-                obs.count("eval.launches")
-                obs.count("eval.tiles")
-                obs.count("eval.lanes", A * t)
-                vals = tsp.sync(KO.dedup_tile_values(ks, uniq, sel, bounds,
-                                                     lo, t))
-                out[:, lo:lo + t] = vals.cpu().numpy()
+            # the tile's host phases: launch (until its Eval is enqueued),
+            # wait (the stream, while tracing only; untraced, the copy
+            # blocks at the same point), copy (D2H and the store)
+            with obs.span("executor.eval_tile", offset=lo, rows=t):
+                with obs.span("executor.tile_launch"):
+                    obs.jit_launch("executor.fused_eval",
+                                   uniq.c0[:, lo:lo + t], bounds.c0)
+                    obs.count("eval.launches")
+                    obs.count("eval.tiles")
+                    obs.count("eval.lanes", A * t)
+                    vals = KO.dedup_tile_values(ks, uniq, sel, bounds, lo, t)
+                with obs.span("executor.tile_wait") as wsp:
+                    wsp.sync(vals)
+                with obs.span("executor.tile_copy"):
+                    out[:, lo:lo + t] = vals.cpu().numpy()
         return out
 
 

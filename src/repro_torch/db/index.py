@@ -103,20 +103,27 @@ class SortedIndex:
         with obs.span("index.search", column=self.column, lanes=B,
                       rows=self.n_rows) as sp:
             while np.any(lo < hi):
-                active = lo < hi
-                mid = (lo + hi) // 2
-                probe = torch.as_tensor(np.where(active, mid, 0), device=dev)
-                rows = Ciphertext(self.sorted_ct.c0[probe],
-                                  self.sorted_ct.c1[probe])
-                obs.jit_launch("index.probe", rows.c0, values.c0)
-                obs.count("eval.launches")
-                obs.count("eval.lanes", B)
-                v = C.eval_value(ks, rows, values).cpu().numpy()   # [B] raw
-                c = np.where(np.abs(v) < taus, 0, np.sign(v))      # per-lane τ
-                probes += active
-                go_left = np.where(strict, c > 0, c >= 0)
-                hi = np.where(active & go_left, mid, hi)
-                lo = np.where(active & ~go_left, mid + 1, lo)
+                # one step; its wait (the stream, while tracing only) sits
+                # where the untraced `.cpu()` blocks
+                with obs.span("index.probe_step"):
+                    active = lo < hi
+                    mid = (lo + hi) // 2
+                    probe = torch.as_tensor(np.where(active, mid, 0),
+                                            device=dev)
+                    rows = Ciphertext(self.sorted_ct.c0[probe],
+                                      self.sorted_ct.c1[probe])
+                    obs.jit_launch("index.probe", rows.c0, values.c0)
+                    obs.count("eval.launches")
+                    obs.count("eval.lanes", B)
+                    v = C.eval_value(ks, rows, values)
+                    with obs.span("index.probe_wait") as wsp:
+                        wsp.sync(v)
+                    v = v.cpu().numpy()                             # [B] raw
+                    c = np.where(np.abs(v) < taus, 0, np.sign(v))  # lane τ
+                    probes += active
+                    go_left = np.where(strict, c > 0, c >= 0)
+                    hi = np.where(active & go_left, mid, hi)
+                    lo = np.where(active & ~go_left, mid + 1, lo)
             sp.set(probes=int(probes.sum()))
         obs.count("index.probes", int(probes.sum()))
         self.search_compares += int(probes.sum())

@@ -249,7 +249,8 @@ class QueryServer:
 
     def _apply_mutation(self, m: _QueuedMutation) -> MutationResult:
         table = self.table
-        with obs.span("server.mutation", kind=m.kind):
+        with obs.span("server.mutation", kind=m.kind), \
+                obs.count_mallocs("server.mutation", self.ks.device):
             deleted = 0
             if m.rows is not None:
                 deleted = table.delete(m.rows)
@@ -381,20 +382,22 @@ class QueryServer:
         # space (join slots resolve in `_run_joins`); pads and tombstones
         # drop via slot_valid
         results: Dict[int, object] = {}
-        for pi, (qid, plan) in enumerate(plans):
-            if qid is None:
-                continue
-            stats = qstats[pi]
-            slot_mask = X.combine_tree(plan.tree, leaf_masks[pi], W)
-            slot_mask &= table.slot_valid
-            row_ids = table.slot_global_ids[np.nonzero(slot_mask)[0]]
-            gmask = rows_to_mask(row_ids, table.n_total)
-            row_ids = X.order_rows(ks, table, plan.query, row_ids, stats)
-            columns = {c: table.gather(c, row_ids)
-                       for c in plan.query.select}
-            results[qid] = X.QueryResult(
-                row_ids=row_ids, mask=gmask, columns=columns, stats=stats)
-            self._bill_tenant(qid, stats)
+        with obs.span("server.combine", queries=len(queries)):
+            for pi, (qid, plan) in enumerate(plans):
+                if qid is None:
+                    continue
+                stats = qstats[pi]
+                slot_mask = X.combine_tree(plan.tree, leaf_masks[pi], W)
+                slot_mask &= table.slot_valid
+                row_ids = table.slot_global_ids[np.nonzero(slot_mask)[0]]
+                gmask = rows_to_mask(row_ids, table.n_total)
+                row_ids = X.order_rows(ks, table, plan.query, row_ids, stats)
+                columns = {c: table.gather(c, row_ids)
+                           for c in plan.query.select}
+                results[qid] = X.QueryResult(
+                    row_ids=row_ids, mask=gmask, columns=columns,
+                    stats=stats)
+                self._bill_tenant(qid, stats)
 
         if joins:
             with obs.span("server.joins", joins=len(joins)):

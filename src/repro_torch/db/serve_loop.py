@@ -472,6 +472,7 @@ class ServeLoop:
             t0 = time.perf_counter()
             done = 0
             with obs.span("serve.pump"):
+                obs.mark_clock()
                 regs = [self._regs[n] for n in list(self._regs)]
                 for reg in regs:
                     done += self._apply_head_writes(reg)
@@ -592,7 +593,8 @@ class ServeLoop:
         """Apply one mutation (isolated: a failing write resolves FAILED
         without poisoning the loop)."""
         server = reg.server
-        with obs.span("serve.batch", table=reg.name, klass=WRITE, size=1):
+        with obs.span("serve.batch", table=reg.name, klass=WRITE, size=1,
+                      tickets=(p.ticket,)):
             self._mark_start([p], WRITE)
             try:
                 qid = self._submit_one(server, p)
@@ -625,7 +627,7 @@ class ServeLoop:
         self.batch_shapes.append((reg.name, klass, size))
         self.stats.batches += 1
         with obs.span("serve.batch", table=reg.name, klass=klass,
-                      size=size):
+                      size=size, tickets=[p.ticket for p in drafted]):
             self._mark_start(drafted, klass)
             try:
                 with server.batch_size(size):

@@ -43,6 +43,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import encrypt as E
 from repro_torch.core.compare import next_pow2
 from repro_torch.core.encrypt import Ciphertext
@@ -347,7 +348,9 @@ class Table:
         hit = self._delta_index_cache.get(column)
         if hit is not None and hit[0] == self.version:
             return hit[1]
-        idx = SortedIndex.build(ks, self.delta, column)
+        with obs.span("delta.index_sort", column=column,
+                      rows=self.delta.n_rows):
+            idx = SortedIndex.build(ks, self.delta, column)
         self._delta_index_cache[column] = (self.version, idx)
         return idx
 

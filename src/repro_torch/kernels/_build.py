@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels, and count their launches.
+"""Build and load the hand-written CUDA kernels, and count and record
+their launches.
 
 Each `csrc/<name>.cu` compiles with `nvcc` into its own shared library
 with a plain C interface, loaded through `ctypes`.  The build runs at
@@ -22,7 +23,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
+
+from repro_torch.obs import trace as _trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -65,10 +68,39 @@ LAUNCHES: Dict[str, int] = {"eval_coeff0_gadget": 0, "eval_coeff0_paper": 0,
                             "negacyclic_mul": 0, "negacyclic_mul_ntt": 0,
                             "ntt_br_fwd": 0, "ntt_br_inv": 0}
 
+# kernel name -> what the names of its device events contain (every C
+# entry launches one kernel; both ntt_br directions and both of its forms
+# share one stream order)
+SYMBOLS: Dict[str, str] = {
+    "eval_coeff0_gadget": "eval_gadget_kernel",
+    "eval_coeff0_paper": "eval_paper_",
+    "negacyclic_mul": "negacyclic_mul_kernel<true>",
+    "negacyclic_mul_ntt": "negacyclic_mul_kernel<false>",
+    "ntt_br_fwd": "ntt_br_", "ntt_br_inv": "ntt_br_"}
 
-def count_launch(name: str) -> None:
+# the span clock while tracing, else 0.0: each wrapper stamps its entry
+# and its C call with it
+stamp = _trace.stamp
+
+
+def count_launch(name: str, t_in: float = 0.0, t_call: float = 0.0, *,
+                 lanes: int = 0, rows: int = 0, K: int = 0, D: int = 0,
+                 n: int = 0, uniq: int = 0, fwd: Optional[bool] = None,
+                 form: str = "") -> None:
+    """Count one launch of kernel `name`, made just now.  While tracing,
+    also record it (`obs.Tracer.add_launch`): `t_in` and `t_call` are the
+    wrapper's `stamp()` at its entry and before the C call, and the
+    keywords the work shape it launched (those left at their defaults
+    are not recorded)."""
     with _count_lock:
         LAUNCHES[name] += 1
+    if _trace._enabled:
+        work = {k: v for k, v in (("lanes", lanes), ("rows", rows),
+                                  ("K", K), ("D", D), ("n", n),
+                                  ("uniq", uniq), ("form", form)) if v}
+        if fwd is not None:
+            work["fwd"] = fwd
+        _trace.TRACER.add_launch(name, SYMBOLS[name], t_in, t_call, work)
 
 
 def reset_launch_counts() -> None:

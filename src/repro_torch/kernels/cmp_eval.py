@@ -249,6 +249,7 @@ def eval_coeff0_gadget(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
     the plain version for CPU tensors.  The kernel reads cek_rev as
     `gadget_cek_bytes`: pass `cek_bytes` (`KeySet.cek_rev_bytes`, made once
     per key set), or it is made here from cek_rev."""
+    t_in = _build.stamp()
     A, K, n = _check(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
                      bounds_c1, cek_rev, qs)
     if not uniq_c1.is_cuda:
@@ -284,8 +285,9 @@ def eval_coeff0_gadget(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
     stream = _build.stream_handle(dev)
     sel = np.asarray(sel, np.int64)
     # the launches go to the current device: make it the operands' card
+    uniq = dict.fromkeys(sel.tolist())          # unique, first-seen order
     with _build.on_device(dev.index):
-        for u in dict.fromkeys(sel.tolist()):   # unique, first-seen order
+        for u in uniq:
             atoms = np.nonzero(sel == u)[0]
             if len(atoms) == A:
                 b0, b1, dst = bounds_c0, bounds_c1, out
@@ -299,13 +301,16 @@ def eval_coeff0_gadget(uniq_c0, uniq_c1, row_offset, rows, sel, bounds_c0,
             b_astride = rows * K * n if per_lane else K * n
             c0 = uniq_c0[u, row_offset:row_offset + rows]
             c1 = uniq_c1[u, row_offset:row_offset + rows]
+            t_call = _build.stamp()
             rc = lib.hades_eval_gadget(
                 c0.data_ptr(), c1.data_ptr(), b0.data_ptr(), b1.data_ptr(),
                 b_astride, b_rstride, cek_bytes.data_ptr(), qs.data_ptr(),
                 int(scale), dst.data_ptr(), len(atoms), rows, K, n, D,
                 int(log_base), stream)
             _build.check(rc, "eval_coeff0_gadget")
-            _build.count_launch("eval_coeff0_gadget")
+            _build.count_launch("eval_coeff0_gadget", t_in, t_call,
+                                lanes=len(atoms) * rows, rows=rows, K=K,
+                                D=D, n=n, uniq=len(uniq))
             if dst is not out:
                 out[idx] = dst
     return out
@@ -416,6 +421,7 @@ def eval_coeff0_paper(a0, a1, cek_rev, qs, scale, b0=None,
     polynomial for every lane) or None (column form); cek_rev: [K, n];
     qs: [K].  The CUDA kernel for CUDA tensors (n one of `PAPER_N`), the
     plain version for CPU tensors."""
+    t_in = _build.stamp()
     B, K, n = _check_paper(a0, a1, b0, b1, cek_rev, qs)
     if not a1.is_cuda:
         return eval_coeff0_paper_plain(a0, a1, cek_rev, qs, scale, b0, b1)
@@ -438,12 +444,14 @@ def eval_coeff0_paper(a0, a1, cek_rev, qs, scale, b0=None,
         p_b0, p_b1 = pb0.data_ptr(), pb1.data_ptr()
     dev = a1.get_device()
     with _build.on_device(dev):
+        t_call = _build.stamp()
         rc = _paper_launch()(
             pa0.data_ptr(), sa0, pa1.data_ptr(), sa1, p_b0, sb0, p_b1, sb1,
             cek_rev.data_ptr(), qs.data_ptr(), int(scale), out.data_ptr(),
             B, K, n, _build.stream_handle(dev))
     _build.check(rc, "eval_coeff0_paper")
-    _build.count_launch("eval_coeff0_paper")
+    _build.count_launch("eval_coeff0_paper", t_in, t_call, lanes=B, K=K,
+                        n=n)
     return out
 
 

@@ -184,6 +184,7 @@ def ntt_br(x: torch.Tensor, ring: R.Ring, *, fwd: bool = True
     inverse (bit-reversed -> natural, with the psi^-1 n^-1 post-twist)
     negacyclic NTT over [..., K, n]: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
+    t_in = _build.stamp()
     _check_poly(x, ring)
     if not x.is_cuda:
         return ntt_br_plain(x, ring, fwd=fwd)
@@ -199,12 +200,16 @@ def ntt_br(x: torch.Tensor, ring: R.Ring, *, fwd: bool = True
     launch = plan(rows, K, n, *card_shape(index), fwd=fwd)
     lib = _build.load("ntt")
     with _build.on_device(index):
+        t_call = _build.stamp()
         rc = lib.hades_ntt_br(src.data_ptr(), out.data_ptr(), rows,
                               ring.shoup.data_ptr(), ring.q_arr.data_ptr(),
                               K, n, int(fwd), launch.cluster, launch.depth,
                               _build.stream_handle(x.device))
     _build.check(rc, "ntt_br")
-    _build.count_launch("ntt_br_fwd" if fwd else "ntt_br_inv")
+    _build.count_launch("ntt_br_fwd" if fwd else "ntt_br_inv", t_in, t_call,
+                        rows=rows, K=K, n=n, fwd=fwd,
+                        form=("narrow" if launch.cluster
+                              else f"wide{launch.depth}"))
     return out.reshape(x.shape)
 
 
@@ -221,6 +226,7 @@ def negacyclic_mul(a: torch.Tensor, b: torch.Tensor,
                    ring: R.Ring) -> torch.Tensor:
     """a ⊛ b over [..., K, n]: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
+    t_in = _build.stamp()
     K, n = ring.num_towers, ring.n
     for x in (a, b):
         _check_poly(x, ring)
@@ -233,13 +239,15 @@ def negacyclic_mul(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((rows, K, n), dtype=torch.int64, device=a.device)
     lib = _build.load("ntt")
     with _build.on_device(a.device.index):
+        t_call = _build.stamp()
         rc = lib.hades_negacyclic_mul(
             pa.data_ptr(), sa, pb.data_ptr(), sb, out.data_ptr(), rows,
             ring.shoup.data_ptr(), ring.q_arr.data_ptr(), K, n,
             _build.stream_handle(a.device))
     _build.check(rc, "negacyclic_mul")
     if rows:
-        _build.count_launch("negacyclic_mul")
+        _build.count_launch("negacyclic_mul", t_in, t_call, rows=rows, K=K,
+                            n=n)
     return out.reshape(batch + (K, n))
 
 
@@ -251,6 +259,7 @@ def negacyclic_mul_ntt(a: torch.Tensor, b_br: torch.Tensor, ring: R.Ring,
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
     b_shoup is b_br's Shoup pairs (`R.shoup_pairs`), made here when not
     given; `KeySet.key_br` caches both once per key."""
+    t_in = _build.stamp()
     K, n = ring.num_towers, ring.n
     for x in (a, b_br):
         _check_poly(x, ring)
@@ -271,11 +280,13 @@ def negacyclic_mul_ntt(a: torch.Tensor, b_br: torch.Tensor, ring: R.Ring,
     out = torch.empty((rows, K, n), dtype=torch.int64, device=a.device)
     lib = _build.load("ntt")
     with _build.on_device(a.device.index):
+        t_call = _build.stamp()
         rc = lib.hades_negacyclic_mul_ntt(
             pa.data_ptr(), sa, key.data_ptr(), out.data_ptr(), rows,
             ring.shoup.data_ptr(), ring.q_arr.data_ptr(), K, n,
             _build.stream_handle(a.device))
     _build.check(rc, "negacyclic_mul_ntt")
     if rows:
-        _build.count_launch("negacyclic_mul_ntt")
+        _build.count_launch("negacyclic_mul_ntt", t_in, t_call, rows=rows,
+                            K=K, n=n)
     return out.reshape(batch + (K, n))

@@ -6,7 +6,9 @@ so the executor, the servers, the serving loop and the benchmarks all
 hang measurements on the same counters.  Three pieces:
 
   * spans  (`obs.span`, `obs.tracing`) — nested, device-true timing,
-    Chrome-trace export; near-zero cost when disabled;
+    Chrome-trace export in Unix time; near-zero cost when disabled; the
+    kernel wrappers' launch records (`Tracer.launches`) and their match
+    with the profiler's device events (`obs.match_launches`);
   * metrics (`obs.count`, `obs.observe`, `obs.metrics.REGISTRY`) —
     counters + histograms that absorb the per-call stats dataclasses;
   * jitwatch (`obs.jit_launch`) — kernel launch-signature sets per
@@ -27,11 +29,12 @@ from repro_torch.obs.jitwatch import signatures as jit_signatures
 from repro_torch.obs.metrics import (REGISTRY, Counter, Histogram, Registry,
                                      absorb_batch_stats,
                                      absorb_compaction_stats,
-                                     absorb_exec_stats, absorb_join_stats,
-                                     count, observe)
-from repro_torch.obs.trace import (TRACER, Span, Tracer, current_span,
+                                     absorb_exec_stats, count, count_mallocs,
+                                     observe)
+from repro_torch.obs.trace import (TRACER, Launch, Span, Tracer, current_span,
                                    disable, enable, get_tracer, is_enabled,
-                                   span, tracing)
+                                   mark_clock, match_launches, span, stamp,
+                                   tracing)
 
 __all__ = [
     "export", "jitwatch", "metrics",
@@ -40,7 +43,8 @@ __all__ = [
     "jit_launch", "jit_retraces", "jit_signatures",
     "REGISTRY", "Counter", "Histogram", "Registry",
     "absorb_batch_stats", "absorb_compaction_stats",
-    "absorb_exec_stats", "absorb_join_stats", "count", "observe",
-    "TRACER", "Span", "Tracer", "current_span", "disable", "enable",
-    "get_tracer", "is_enabled", "span", "tracing",
+    "absorb_exec_stats", "count", "count_mallocs", "observe",
+    "TRACER", "Launch", "Span", "Tracer", "current_span", "disable",
+    "enable", "get_tracer", "is_enabled", "mark_clock", "match_launches",
+    "span", "stamp", "tracing",
 ]

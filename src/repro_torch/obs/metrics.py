@@ -22,6 +22,10 @@ Counter glossary:
   server.batch_wall_s  histogram of drained-batch wall seconds
   server.queries       queries served (label: tenant)
   server.compares      compare lanes attributed per tenant
+  compact.bytes        ciphertext bytes a compaction phase reads plus
+                       writes, from logical shapes (label: phase)
+  mem.cuda_mallocs     cudaMalloc segments allocated inside a span
+                       (label: span; CUDA only)
 """
 from __future__ import annotations
 
@@ -181,8 +185,6 @@ def absorb_exec_stats(stats, **labels) -> None:
     count("exec.order_compares", stats.order_compares, **labels)
     count("exec.scan_leaves", stats.scan_leaves, **labels)
     count("exec.indexed_leaves", stats.indexed_leaves, **labels)
-    if getattr(stats, "merge_compares", 0):
-        count("exec.merge_compares", stats.merge_compares, **labels)
 
 
 def absorb_batch_stats(bstats, **labels) -> None:
@@ -197,15 +199,6 @@ def absorb_batch_stats(bstats, **labels) -> None:
     observe("server.batch_wall_s", bstats.wall_s, **labels)
 
 
-def absorb_join_stats(jstats, **labels) -> None:
-    """Fold one `JoinStats` into the registry."""
-    if not _trace._enabled:
-        return
-    count("join.executions", 1, strategy=jstats.strategy, **labels)
-    count("join.eval_calls", jstats.eval_calls, **labels)
-    count("join.compares", jstats.join_compares, **labels)
-
-
 def absorb_compaction_stats(cstats, **labels) -> None:
     """Fold one `CompactionStats` into the registry."""
     if not _trace._enabled:
@@ -213,3 +206,36 @@ def absorb_compaction_stats(cstats, **labels) -> None:
     count("compact.runs", 1, **labels)
     count("compact.merge_compares", cstats.merge_compares, **labels)
     count("compact.indexes_merged", cstats.indexes_merged, **labels)
+
+
+class _MallocCount:
+    """Adds the cudaMalloc segments allocated between its enter and exit
+    to `mem.cuda_mallocs{span=...}`."""
+
+    __slots__ = ("span", "device", "before")
+
+    def __init__(self, span: str, device):
+        self.span, self.device = span, device
+
+    def _segments(self) -> int:
+        import torch
+        return torch.cuda.memory_stats(self.device).get(
+            "segment.all.allocated", 0)
+
+    def __enter__(self) -> "_MallocCount":
+        self.before = self._segments()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        count("mem.cuda_mallocs", self._segments() - self.before,
+              span=self.span)
+
+
+def count_mallocs(span: str, device):
+    """Context manager: count the cudaMalloc calls of a region on a CUDA
+    `device` into `mem.cuda_mallocs{span=span}` (the allocator's
+    `segment.all.allocated` before and after).  The shared no-op span
+    when tracing is off or the device is not CUDA."""
+    if not _trace._enabled or getattr(device, "type", None) != "cuda":
+        return _trace._NULL_SPAN
+    return _MallocCount(span, device)

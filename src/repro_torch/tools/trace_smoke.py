@@ -13,7 +13,12 @@ then fails loudly unless:
     fused raw-eval launch, and the index binary search;
   * the server runs with a deliberately tiny `lane_budget`, so the
     fused scan splits into lane tiles — every `executor.eval_tile`
-    span must nest under an `executor.fused_eval` parent;
+    span must nest under an `executor.fused_eval` parent, and hold its
+    three phases `executor.tile_launch`, `executor.tile_wait` and
+    `executor.tile_copy`, in that order;
+  * the export is stamped in Unix µs (the clock of `torch.profiler`'s
+    traces): every event lies between the Unix times read before and
+    after the traced drain;
   * per-query compare lanes reconcile exactly with the batch totals.
 
 The trace lands at --out (default trace_smoke.json).
@@ -26,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import numpy as np
 
@@ -34,6 +40,11 @@ from repro_torch.core import encrypt as E
 from repro_torch.core.keys import keygen
 from repro_torch.core.params import make_params
 from repro_torch.core.ring import resolve_device
+
+
+# the phases of every executor.eval_tile span, in order
+TILE_PHASES = ("executor.tile_launch", "executor.tile_wait",
+               "executor.tile_copy")
 
 
 def run(argv=None) -> dict:
@@ -65,9 +76,11 @@ def run(argv=None) -> dict:
             server.submit(db.Query(where=db.Range("v", enc(3, 5),
                                                   enc(95, 6)),
                                    top_k=db.TopK("v", 3)))]
+    unix_lo = time.time_ns() / 1e3
     with obs.tracing() as tr:
         results = server.run()
         spans = list(tr.spans)
+        unix_hi = time.time_ns() / 1e3
         tr.write_chrome_trace(args.out)
 
     errors = []
@@ -96,6 +109,10 @@ def run(argv=None) -> dict:
                 f"executor.eval_tile span (sid={s.sid}) not nested under "
                 f"executor.fused_eval (parent="
                 f"{parent.name if parent else None})")
+        phases = [k.name for k in tr.children(s)]
+        if phases != list(TILE_PHASES):
+            errors.append(f"executor.eval_tile span (sid={s.sid}) holds "
+                          f"{phases}, not {list(TILE_PHASES)}")
 
     with open(args.out) as f:
         doc = json.load(f)
@@ -105,6 +122,10 @@ def run(argv=None) -> dict:
         for field in ("ph", "ts", "pid"):
             if field not in ev:
                 errors.append(f"event {i} missing {field!r}: {ev}")
+        # a slack of 1 ms for the clock pair's own reads
+        if not unix_lo - 1e3 <= ev.get("ts", 0) <= unix_hi + 1e3:
+            errors.append(f"event {i} at {ev.get('ts')} µs lies outside "
+                          f"the drain's Unix time [{unix_lo}, {unix_hi}]")
 
     names = {ev.get("name") for ev in events}
     for must in ("server.batch", "index.search", "executor.fused_eval"):

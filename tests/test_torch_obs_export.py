@@ -75,15 +75,29 @@ def _unoptimized_reference_compiles():
 # a wall-clock histogram: its count is compared, its values are times
 TIMED = ("server.batch_wall_s",)
 
+# the port's spans and counters that the reference has no counterpart of
+# (tests/test_torch_obs_trace.py holds where each is made); the trees and
+# snapshots compared with the reference's leave them out, a left-out
+# span's children taking its place
+PORT_ONLY_SPANS = (
+    "executor.tile_launch", "executor.tile_wait", "executor.tile_copy",
+    "server.combine", "index.probe_step", "index.probe_wait",
+    "delta.index_sort", "compact.delta_index", "compact.pad_blocks",
+    "compact.fold")
+PORT_ONLY_COUNTERS = ("compact.bytes", "mem.cuda_mallocs")
 
-def _masked_tree(tracer):
-    return [re.sub(r"\d+\.\d+ms", "_ms", ln) for ln in tracer.tree_lines()]
+
+def _masked_tree(tracer, skip=()):
+    return [re.sub(r"\d+\.\d+ms", "_ms", ln)
+            for ln in tracer.tree_lines(*((skip,) if skip else ()))]
 
 
 def _comparable(snapshot):
-    """A metrics snapshot with the wall-clock histograms cut to counts."""
+    """A metrics snapshot with the wall-clock histograms cut to counts and
+    the port-only counters left out."""
     return {k: ({"count": v["count"]} if k.split("{")[0] in TIMED else v)
-            for k, v in snapshot.items()}
+            for k, v in snapshot.items()
+            if k.split("{")[0] not in PORT_ONLY_COUNTERS}
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +207,10 @@ def test_disabled_layer_is_a_noop():
     TO.jit_launch("nowhere", np.zeros((2, 2)))
     assert TO.REGISTRY.snapshot() == before
     assert TO.current_span() is None and TO.get_tracer() is TO.TRACER
+    pairs = len(TO.TRACER.clock_pairs)
+    TO.mark_clock()
+    assert TO.stamp() == 0.0 and len(TO.TRACER.clock_pairs) == pairs
+    assert TO.count_mallocs("compact", torch.device("cuda", 0)) is s1
 
 
 def test_trace_and_metrics_files_from_a_served_batch(tmp_path):
@@ -225,14 +243,42 @@ def test_trace_and_metrics_files_from_a_served_batch(tmp_path):
 
 def _both_traced(run_ref, run_port):
     """Run each engine's case traced; returns (reference, port) records
-    of (result, snapshot, masked tree, spans)."""
+    of (result, snapshot, masked tree, spans); the port's tree and
+    snapshot without its port-only spans and counters."""
     out = []
-    for obs, run in ((RO, run_ref), (TO, run_port)):
+    for obs, run, skip in ((RO, run_ref, ()), (TO, run_port,
+                                                PORT_ONLY_SPANS)):
         with obs.tracing() as tr:
             res = run()
             out.append((res, _comparable(obs.REGISTRY.snapshot()),
-                        _masked_tree(tr), list(tr.spans)))
+                        _masked_tree(tr, skip), list(tr.spans)))
     return out
+
+
+@pytest.mark.parametrize("name", PORT_ONLY_SPANS + PORT_ONLY_COUNTERS)
+def test_port_only_names_are_recorded(name):
+    """Each port-only name is recorded by a traced run through the loop
+    (an insert, an indexed and a scanned read, a compaction), or, for
+    the allocator's counter, around a span on a card."""
+    from test_torch_obs_trace import traced_scenario
+    run = traced_scenario()
+    if name == "mem.cuda_mallocs":       # CUDA only: the reads stubbed
+        reads = iter([{"segment.all.allocated": 2}] * 2)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.cuda, "memory_stats",
+                       lambda device=None: next(reads))
+            with TO.tracing():
+                with TO.count_mallocs("compact", torch.device("cuda", 0)):
+                    pass
+                snap = TO.REGISTRY.snapshot()
+        assert snap == {"mem.cuda_mallocs{span=compact}": 0}
+    elif name in PORT_ONLY_COUNTERS:
+        assert any(k.split("{")[0] == name for k in run["snap"])
+    else:
+        assert name in {s.name for s in run["spans"]}
+    scenario = TO.Tracer()
+    scenario.spans = run["spans"]
+    assert name not in "\n".join(_masked_tree(scenario, PORT_ONLY_SPANS))
 
 
 def _indexes():
