@@ -47,6 +47,9 @@ from test_torch_core import jitted_ref, n_, t_
 from test_torch_db import _fixture
 from test_torch_join import gadget_keys
 from test_torch_write import _keys as paper_keys
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
 
 jax.config.update("jax_enable_x64", True)
 

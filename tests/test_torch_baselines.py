@@ -17,6 +17,10 @@ from repro_torch.baselines import hope as THOPE
 from repro_torch.baselines import paillier as TP
 from repro_torch.baselines import pope as TPOPE
 
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
+
 PKGS = {"reference": (RP, RHOPE, RPOPE), "port": (TP, THOPE, TPOPE)}
 
 

@@ -23,16 +23,13 @@ import pytest
 import torch
 
 from repro import db as RDB
-from repro import obs as RO
 from repro.core import ckks as RCK
 from repro.core import compare as RC
 from repro.core import encrypt as RE
 from repro.core import ring as RR
 from repro.core.keys import KeySet as RefKeySet
 from repro.core.params import make_params as ref_make_params
-from repro.db import index as RI
 from repro.db import plan as RP
-from repro.db.shard import index as RSI
 from repro_torch import db as TDB
 from repro_torch.core import ckks as TCK
 from repro_torch.core import compare as TC
@@ -46,56 +43,15 @@ from test_torch_core import ct_to_torch, jitted_ref, ks_to_torch, n_
 from test_torch_join import Scheme, Side
 from test_torch_shard import STATS as SHARD_STATS
 from test_torch_shard import _ref_zeros
-from test_torch_write import (BATCH_STATS, COMPACTION, _build_with_shared_jit,
-                              _jitted, _same_index, _same_result, _same_state,
-                              _samples, _zero_pads)
+from test_torch_write import (BATCH_STATS, COMPACTION, _same_index,
+                              _same_result, _same_state, _samples, _zero_pads)
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _jitted_reference, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
 
 jax.config.update("jax_enable_x64", True)
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's ops while this module runs
-    (see tests/test_torch_examples.py: worker processes share the
-    cores)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _unoptimized_reference_compiles():
-    """Compile the reference's programs without XLA's optimization
-    passes while this module runs (see tests/test_torch_join.py: nearly
-    all of its time is the reference compiling)."""
-    was = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _clear_reference_spans():
-    """Leave the reference's tracer without spans after this module
-    (tests/test_obs.py expects none while tracing is off)."""
-    yield
-    RO.TRACER.clear()
-
-
-@pytest.fixture(autouse=True)
-def _jitted_reference(monkeypatch):
-    """The reference's encrypt/decrypt, its indexes' sort comparator and
-    probe Evals, jitted once per KeySet (eager JAX compiles every op at
-    every shape; jitting integer arithmetic changes no value)."""
-    for name in ("encrypt", "decrypt"):
-        monkeypatch.setattr(RE, name, lambda ks, *a, _n=name:
-                            _jitted(_n, ks)(*a))
-    monkeypatch.setattr(RI.SortedIndex, "build",
-                        _build_with_shared_jit(RI.SortedIndex.build))
-    for cls in (RI.SortedIndex, RSI.ShardedIndex):
-        monkeypatch.setattr(cls, "_eval",
-                            lambda self, ks: _jitted("eval_value", ks))
+pytestmark = pytest.mark.usefixtures("_jitted_reference")
 
 
 GRID = 0.25          # float lattice (>> test-ckks equality tolerance)

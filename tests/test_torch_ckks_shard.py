@@ -29,11 +29,7 @@ import pytest
 import torch
 
 from repro import db as RDB
-from repro import obs as RO
-from repro.core import encrypt as RE
-from repro.db import index as RI
 from repro.db import plan as RP
-from repro.db.shard import index as RSI
 from repro.db.shard import table as RST
 from repro_torch import db as TDB
 from repro_torch.core import ckks as TCK
@@ -45,57 +41,17 @@ from test_torch_ckks import EPS_BAND, GRID, Floats, _float_side
 from test_torch_join import JOIN_STATS, Side, _same_ct, _want_pairs
 from test_torch_shard import (BATCH_STATS, COMPACTION, _ref_zeros,
                               _same_result, _same_state)
-from test_torch_write import _build_with_shared_jit, _jitted, _samples
+from test_torch_write import _samples
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _jitted_reference, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
 
 jax.config.update("jax_enable_x64", True)
 
+pytestmark = pytest.mark.usefixtures("_jitted_reference")
+
 CPU = torch.device("cpu")
 PAD_SEED = 0x5AAD                  # the reference's partition pads
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's ops while this module runs
-    (see tests/test_torch_examples.py: worker processes share the
-    cores)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _unoptimized_reference_compiles():
-    """Compile the reference's programs without XLA's optimization
-    passes while this module runs (see tests/test_torch_join.py: nearly
-    all of its time is the reference compiling)."""
-    was = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _clear_reference_spans():
-    """Leave the reference's tracer without spans after this module
-    (tests/test_obs.py expects none while tracing is off)."""
-    yield
-    RO.TRACER.clear()
-
-
-@pytest.fixture(autouse=True)
-def _jitted_reference(monkeypatch):
-    """The reference's encrypt/decrypt, its indexes' sort comparator and
-    probe Evals, jitted once per KeySet (eager JAX compiles every op at
-    every shape; jitting integer arithmetic changes no value)."""
-    for name in ("encrypt", "decrypt"):
-        monkeypatch.setattr(RE, name, lambda ks, *a, _n=name:
-                            _jitted(_n, ks)(*a))
-    monkeypatch.setattr(RI.SortedIndex, "build",
-                        _build_with_shared_jit(RI.SortedIndex.build))
-    for cls in (RI.SortedIndex, RSI.ShardedIndex):
-        monkeypatch.setattr(cls, "_eval",
-                            lambda self, ks: _jitted("eval_value", ks))
 
 
 def _sharded(S, side=None, spec=None):

@@ -15,19 +15,11 @@ from repro_torch.examples import quickstart as QS
 from repro_torch.examples import secure_topk_serving as STS
 from repro_torch.tools import trace_smoke as TS
 
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
+
 CPU = ["--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs: the examples run
-    thousands of small ops, and with the suite's worker processes
-    sharing the cores, each op's thread pool waits on the others (the
-    range query took 110 s under 6 workers, 3 s alone)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 def _all_true(tree):

@@ -21,14 +21,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro import db as RDB
-from repro import obs as RO
 from repro.core import compare as RC
 from repro.core import encrypt as RE
 from repro.core.compare import next_pow2
-from repro.db import index as RI
 from repro.db import plan as RP
 from repro.db import table as RT
 from repro_torch import db as TDB
@@ -37,66 +34,15 @@ from repro_torch.db import plan as TP
 
 from test_torch_core import ct_to_torch, jitted_ref, n_, ref_encrypt_samples
 from test_torch_join import Side, _same_join, _want_pairs, gadget_keys
-from test_torch_write import (BATCH_STATS, COMPACTION, _build_with_shared_jit,
-                              _jitted, _same_ct, _same_index, _same_result,
-                              _samples, _zero_pads)
+from test_torch_write import (BATCH_STATS, COMPACTION, _same_ct, _same_index,
+                              _same_result, _samples, _zero_pads)
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _jitted_reference, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
 
 jax.config.update("jax_enable_x64", True)
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's ops while this module runs
-    (see tests/test_torch_examples.py: worker processes share the
-    cores)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _unoptimized_reference_compiles():
-    """Compile the reference's programs without XLA's optimization
-    passes while this module runs (see tests/test_torch_join.py: nearly
-    all of its time is the reference compiling)."""
-    was = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _clear_reference_spans():
-    """Leave the reference's tracer without spans after this module
-    (tests/test_obs.py expects none while tracing is off)."""
-    yield
-    RO.TRACER.clear()
-
-
-_FAE_JIT = {}       # id(KeySet) -> the reference's encrypt_fae, jitted
-
-
-@pytest.fixture(autouse=True)
-def _jitted_reference(monkeypatch):
-    """The reference's encrypt, encrypt_fae and decrypt, its index's
-    sort comparator and probe Eval, each jitted once per KeySet (eager
-    JAX compiles every op at every shape; jitting integer arithmetic
-    changes no value)."""
-    for name in ("encrypt", "decrypt"):
-        monkeypatch.setattr(RE, name, lambda ks, *a, _n=name:
-                            _jitted(_n, ks)(*a))
-    fae = RE.encrypt_fae
-
-    def encrypt_fae(ks, m, key):
-        if id(ks) not in _FAE_JIT:
-            _FAE_JIT[id(ks)] = jax.jit(lambda x, k: fae(ks, x, k))
-        return _FAE_JIT[id(ks)](m, key)
-    monkeypatch.setattr(RE, "encrypt_fae", encrypt_fae)
-    monkeypatch.setattr(RI.SortedIndex, "build",
-                        _build_with_shared_jit(RI.SortedIndex.build))
-    monkeypatch.setattr(RI.SortedIndex, "_eval",
-                        lambda self, ks: _jitted("eval_value", ks))
+pytestmark = pytest.mark.usefixtures("_jitted_reference")
 
 
 PROFILES = ["test-bfv", "test-ckks"]

@@ -24,7 +24,6 @@ from repro.core import encrypt as RE
 from repro.core import ring as RR
 from repro.core.keys import KeySet as RefKeySet
 from repro.core.params import make_params as ref_make_params
-from repro.db import index as RI
 from repro.db import join as RJ
 from repro.db import plan as RP
 from repro_torch import db as TDB
@@ -38,32 +37,16 @@ from repro_torch.kernels import cmp_eval as TCK
 from repro_torch.kernels import ops as TKO
 
 from test_torch_core import ct_to_torch, n_
-from test_torch_write import (_build_with_shared_jit, _jitted,
-                                    _keys as paper_keys, _samples,
+from test_torch_write import (_keys as paper_keys, _samples,
                                     _zero_pads)
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _jitted_reference, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
 
 jax.config.update("jax_enable_x64", True)
 
+pytestmark = pytest.mark.usefixtures("_jitted_reference")
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's ops while this module runs
-    (see tests/test_torch_examples.py: worker processes share the
-    cores)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _clear_reference_spans():
-    """Leave the reference's tracer without spans after this module:
-    `RO.tracing()` keeps a region's spans for the caller to read, and
-    tests/test_obs.py expects none while tracing is off, whichever
-    module ran before it in the same worker."""
-    yield
-    RO.TRACER.clear()
 
 GRID = 0.25          # ckks float grid (>> test-ckks equality tolerance)
 EPS_BAND = 0.3       # captures exactly the ±1-grid-step neighbours
@@ -73,32 +56,6 @@ JOIN_STATS = ("strategy", "eval_calls", "pair_compares", "build_compares",
               "shards", "join_compares")
 EXEC_STATS = ("eval_calls", "scan_compares", "index_compares", "scan_leaves",
               "indexed_leaves", "order_compares")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _unoptimized_reference_compiles():
-    """Compile the reference's programs without XLA's optimization
-    passes while this module runs: nearly all of its time is the
-    reference compiling eager ops and jitted programs at each new shape,
-    and the passes change no integer result."""
-    was = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", was)
-
-
-@pytest.fixture(autouse=True)
-def _jitted_reference(monkeypatch):
-    """The reference's encrypt/decrypt, its index's sort comparator and
-    probe Eval, each jitted once per KeySet (eager JAX compiles every op
-    at every shape; jitting integer arithmetic changes no value)."""
-    for name in ("encrypt", "decrypt"):
-        monkeypatch.setattr(RE, name, lambda ks, *a, _n=name:
-                            _jitted(_n, ks)(*a))
-    monkeypatch.setattr(RI.SortedIndex, "build",
-                        _build_with_shared_jit(RI.SortedIndex.build))
-    monkeypatch.setattr(RI.SortedIndex, "_eval",
-                        lambda self, ks: _jitted("eval_value", ks))
 
 
 @functools.lru_cache(maxsize=None)

@@ -16,9 +16,10 @@ layers are held function by function, and one bfloat16 forward per
 family within `BF16_REL_TOL` with a control that must exceed it.
 
 The reference's programs compile without XLA's optimization passes
-here (`_unoptimized_reference_compiles`), which cuts their compile time
-about fourfold; the float32 results stay within TOL, and the bfloat16
-readings are printed by `python tests/test_torch_lm_families.py`.
+(`_unoptimized_reference_compiles` in tests/torch_fixtures.py), which cuts
+their compile time about fourfold; the float32 results stay within TOL,
+and the bfloat16 readings are printed by `python
+tests/test_torch_lm_families.py`.
 """
 import dataclasses
 import functools
@@ -48,6 +49,9 @@ from repro_torch.models.config import check_supported
 
 from test_torch_core import n_
 from test_torch_lm import BF16_REL_TOL, _rel_err, _with_bumped
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
 
 jax.config.update("jax_enable_x64", True)
 
@@ -59,28 +63,6 @@ FAMILIES = ("minicpm3_4b", "deepseek_moe_16b", "qwen3_moe_30b_a3b",
 # one bfloat16 forward per family (MLA, MoE, hybrid, ssm, audio, vlm)
 BF16_FAMILIES = ("minicpm3_4b", "deepseek_moe_16b", "recurrentgemma_9b",
                  "xlstm_125m", "whisper_base", "llava_next_34b")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _unoptimized_reference_compiles():
-    """Compile the reference's programs without XLA's optimization
-    passes while this module runs (nearly all of its time is the
-    reference compiling)."""
-    was = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's ops while this module runs
-    (see tests/test_torch_examples.py: worker processes share the
-    cores)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 @functools.lru_cache(maxsize=None)

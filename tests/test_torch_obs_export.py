@@ -37,40 +37,14 @@ from repro_torch.db.index import SortedIndex as TorchIndex
 from repro_torch.db.query_serve import QueryServer as TorchServer
 
 from test_torch_db import N_ROWS, _fixture
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _jitted_reference, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
 
 jax.config.update("jax_enable_x64", True)
 
+pytestmark = pytest.mark.usefixtures("_jitted_reference")
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's ops while this module runs
-    (see tests/test_torch_examples.py: worker processes share the
-    cores)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _clear_reference_spans():
-    """Leave the reference's tracer without spans after this module:
-    `RO.tracing()` keeps a region's spans for the caller to read, and
-    tests/test_obs.py expects none while tracing is off, whichever
-    module ran before it in the same worker."""
-    yield
-    RO.TRACER.clear()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _unoptimized_reference_compiles():
-    """Compile the reference's programs without XLA's optimization
-    passes while this module runs (see tests/test_torch_join.py: nearly
-    all of its time is the reference compiling)."""
-    was = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", was)
 
 # a wall-clock histogram: its count is compared, its values are times
 TIMED = ("server.batch_wall_s",)

@@ -10,7 +10,6 @@ import math
 import time
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch import db, obs
@@ -23,18 +22,14 @@ from repro_torch.db.serve_loop import ServeLoop
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as KO
 
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
+
 TILE_PHASES = ("executor.tile_launch", "executor.tile_wait",
                "executor.tile_copy")
 VALS = np.array([3, 14, 15, 9, 26, 5, 35, 8, 97, 93, 23, 84], np.int64)
 AUX = np.array([1, 2, 3, 1, 2, 3, 1, 2, 3, 1, 2, 3], np.int64)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 @functools.lru_cache(maxsize=None)

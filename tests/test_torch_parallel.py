@@ -46,6 +46,10 @@ from repro_torch.parallel import constrain as TC
 from repro_torch.parallel import sharding as TSH
 from repro_torch.parallel.constrain import AbstractMesh as TMesh, P
 
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
+
 MESHES = {"32x8": ((32, 8), ("data", "model")),
           "2x32x8": ((2, 32, 8), ("pod", "data", "model"))}
 # the EP body summed over ranks against the global path: float32 reads
@@ -54,27 +58,6 @@ MESHES = {"32x8": ((32, 8), ("data", "model")),
 EP_TOL = 1e-5
 # the two-rank gloo mesh against the plain forward: reads ~2.6e-6
 MESH_TOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _unoptimized_reference_compiles():
-    """Compile the reference's programs without XLA's optimization
-    passes while this module runs."""
-    was = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's ops while this module runs
-    (see tests/test_torch_examples.py: worker processes share the
-    cores)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 def _ref_mesh(name):

@@ -21,10 +21,8 @@ import torch
 from repro import db as RDB
 from repro import obs as RO
 from repro.core import encrypt as RE
-from repro.db import index as RI
 from repro.db import plan as RP
 from repro.db.shard import executor as RSX
-from repro.db.shard import index as RSI
 from repro.db.shard import table as RST
 from repro_torch import db as TDB
 from repro_torch import obs as TO
@@ -36,32 +34,16 @@ from repro_torch.db.shard.table import partition_offsets
 from repro_torch.kernels import ops as TKO
 
 from test_torch_core import ct_to_torch, n_
-from test_torch_join import (Scheme, Side, _same_ct, _same_join,
-                             _unoptimized_reference_compiles)
-from test_torch_write import _build_with_shared_jit, _jitted, _samples
+from test_torch_join import Scheme, Side, _same_ct, _same_join
+from test_torch_write import _samples
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _jitted_reference, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
 
 jax.config.update("jax_enable_x64", True)
 
+pytestmark = pytest.mark.usefixtures("_jitted_reference")
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's ops while this module runs
-    (see tests/test_torch_examples.py: worker processes share the
-    cores)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _clear_reference_spans():
-    """Leave the reference's tracer without spans after this module:
-    `RO.tracing()` keeps a region's spans for the caller to read, and
-    tests/test_obs.py expects none while tracing is off, whichever
-    module ran before it in the same worker."""
-    yield
-    RO.TRACER.clear()
 
 SHARDS = (1, 2, 3, 4)
 N_ROWS = 22
@@ -74,21 +56,6 @@ BATCH_STATS = ("queries", "shards", "eval_calls", "scan_compares",
                "delta_build_compares", "merge_compares")
 COMPACTION = ("n_base", "n_delta", "shards", "merge_compares",
               "merge_rounds", "rebuild_compares", "indexes_merged")
-
-
-@pytest.fixture(autouse=True)
-def _jitted_reference(monkeypatch):
-    """The reference's encrypt/decrypt, its indexes' sort comparator and
-    probe Evals, jitted once per KeySet (eager JAX compiles every op at
-    every shape, and each reference index jits its own probe Eval)."""
-    for name in ("encrypt", "decrypt"):
-        monkeypatch.setattr(RE, name, lambda ks, *a, _n=name:
-                            _jitted(_n, ks)(*a))
-    monkeypatch.setattr(RI.SortedIndex, "build",
-                        _build_with_shared_jit(RI.SortedIndex.build))
-    for cls in (RI.SortedIndex, RSI.ShardedIndex):
-        monkeypatch.setattr(cls, "_eval",
-                            lambda self, ks: _jitted("eval_value", ks))
 
 
 def _ref_zeros(ref_ks, seed):

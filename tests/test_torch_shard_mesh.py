@@ -53,15 +53,17 @@ from repro_torch.parallel.sharding import (ShardStack, leading_sharding,
                                            shard_leading)
 
 from test_torch_core import n_
-# the module fixtures are used by name (pytest collects them from here)
-from test_torch_join import (  # noqa: F401
-    EXEC_STATS, Scheme, Side, _same_ct, _unoptimized_reference_compiles)
-from test_torch_shard import (  # noqa: F401
-    N_ROWS, STATS, _clear_reference_spans, _fixture, _insert,
-    _jitted_reference, _one_torch_thread, _queries, _ref_zeros, _same_state)
+from test_torch_join import EXEC_STATS, Scheme, Side, _same_ct
+from test_torch_shard import (N_ROWS, STATS, _fixture, _insert, _queries,
+                              _ref_zeros, _same_state)
 from test_torch_shard import _shared as _shared_ref
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _jitted_reference, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
 
 jax.config.update("jax_enable_x64", True)
+
+pytestmark = pytest.mark.usefixtures("_jitted_reference")
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -426,10 +428,8 @@ def test_matches_reference_shard_map_on_four_devices(tmp_path):
 
 def _worker(out: str) -> None:
     """The subprocess of the test above: readings to `out`."""
-    from repro.core import encrypt as RE
-    from repro.db import index as RI
     from repro.db import join as RJ
-    from test_torch_write import _jitted
+    from torch_fixtures import jit_reference
     from repro.kernels import ops as RKO
     jax.config.update("jax_disable_most_optimizations", True)
     shard_map = RKO._shard_map
@@ -438,9 +438,7 @@ def _worker(out: str) -> None:
         def _shard_map(f, *, check_rep=True, **kw):
             return shard_map(f, check_vma=check_rep, **kw)
         RKO._shard_map = _shard_map
-    for name in ("encrypt", "decrypt"):
-        setattr(RE, name, lambda ks, *a, _n=name: _jitted(_n, ks)(*a))
-    RI.SortedIndex._eval = lambda self, ks: _jitted("eval_value", ks)
+    jit_reference()
     torch.set_num_threads(1)
     four = [CPU] * 4
     mesh = {"ref": {s: RDB.ShardSpec.create(s).mesh_devices

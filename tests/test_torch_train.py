@@ -58,33 +58,16 @@ from repro_torch.train import data as TD
 from repro_torch.train import optimizer as TOPT
 from repro_torch.train import train_lib as TTL
 
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
+
 jax.config.update("jax_enable_x64", True)
 
 CPU = "cpu"
 ULP_TOL = 8
 LOSS_TOL = 1e-5
 GRAD_TOL = 5e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _unoptimized_reference_compiles():
-    """Compile the reference's programs without XLA's optimization
-    passes while this module runs (see tests/test_torch_lm_families.py)."""
-    was = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's ops while this module runs
-    (see tests/test_torch_examples.py: worker processes share the
-    cores)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
 
 
 def _np(x):

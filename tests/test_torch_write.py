@@ -20,13 +20,11 @@ import torch
 
 from repro import db as RDB
 from repro import obs as RO
-from repro.core import compare as RC
 from repro.core import encrypt as RE
 from repro.core.compare import next_pow2
 from repro.core import ring as RR
 from repro.core.keys import KeySet as RefKeySet
 from repro.core.params import make_params as ref_make_params
-from repro.db import index as RI
 from repro.db import plan as RP
 from repro.db.executor import jitted_comparator
 from repro.db import table as RT
@@ -40,40 +38,14 @@ from repro_torch.db.executor import fae_comparator
 from repro_torch.db.shard import merge as TM
 
 from test_torch_core import ct_to_torch, n_, ref_encrypt_samples
+from torch_fixtures import (  # noqa: F401  (fixtures, used by name)
+    _clear_reference_spans, _jitted_reference, _one_torch_thread, _time_limit,
+    _unoptimized_reference_compiles)
 
 jax.config.update("jax_enable_x64", True)
 
+pytestmark = pytest.mark.usefixtures("_jitted_reference")
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's ops while this module runs
-    (see tests/test_torch_examples.py: worker processes share the
-    cores)."""
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(was)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _clear_reference_spans():
-    """Leave the reference's tracer without spans after this module:
-    `RO.tracing()` keeps a region's spans for the caller to read, and
-    tests/test_obs.py expects none while tracing is off, whichever
-    module ran before it in the same worker."""
-    yield
-    RO.TRACER.clear()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _unoptimized_reference_compiles():
-    """Compile the reference's programs without XLA's optimization
-    passes while this module runs (see tests/test_torch_join.py: nearly
-    all of its time is the reference compiling)."""
-    was = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", was)
 
 STATS = ("eval_calls", "scan_compares", "index_compares", "scan_leaves",
          "indexed_leaves", "order_compares", "delta_build_compares")
@@ -101,43 +73,6 @@ def _keys(profile):
                           for k in ("sk", "pk0", "pk1", "cek")},
                        cek_gadget=None, cek_gadget_ntt=None)
     return ref_ks, tks, jax.jit(lambda m, k: RE.encrypt(ref_ks, m, k))
-
-
-_JITTED = {}        # (function, id(KeySet)) -> jitted; KeySets live on
-_REF_FNS = {"encrypt": RE.encrypt, "decrypt": RE.decrypt,
-            "eval_value": RC.eval_value, "compare_fae": RC.compare_fae}
-
-
-def _jitted(name, ks):
-    key = (name, id(ks))
-    if key not in _JITTED:
-        fn = _REF_FNS[name]
-        _JITTED[key] = jax.jit(lambda *a: fn(ks, *a))
-    return _JITTED[key]
-
-
-def _build_with_shared_jit(build):
-    def wrapped(cls, ks, table, column, *, comparator=None):
-        fae = _jitted("compare_fae", ks)
-        return build(ks, table, column, comparator=comparator or (
-            lambda _ks, a, b: fae(a, b)))
-    return classmethod(wrapped)
-
-
-@pytest.fixture(autouse=True)
-def _jitted_ref_encryption(monkeypatch):
-    """The reference's encrypt/decrypt and its index's sort comparator and
-    probe Eval, each jitted once per KeySet: eager JAX compiles every op
-    at every new shape (seconds per encryption on a CPU), a reference
-    index jits its own comparator and probe Eval per build, and jitting
-    integer arithmetic leaves every value as it is."""
-    for name in ("encrypt", "decrypt"):
-        monkeypatch.setattr(RE, name, lambda ks, *a, _n=name:
-                            _jitted(_n, ks)(*a))
-    monkeypatch.setattr(RI.SortedIndex, "build",
-                        _build_with_shared_jit(RI.SortedIndex.build))
-    monkeypatch.setattr(RI.SortedIndex, "_eval",
-                        lambda self, ks: _jitted("eval_value", ks))
 
 
 def _zero_pads(ref_ks):
